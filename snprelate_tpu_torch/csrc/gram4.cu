@@ -1,0 +1,173 @@
+// K1 gram4: fused 2-bit decode + reduced-basis count grams.
+//
+// Replaces snprelate_tpu/ops/pairwise.py:_gram4_step (decode2bit ->
+// genotype_basis -> _sym_grams4). For one packed SNP chunk, (S, N/4) bytes
+// with the first sample in the low bits and 0xFF padding (= missing), it
+// adds V'V, H'H, D'D and H'V into an int32 (4, N, N) carry, where
+// V = [g != 3], H = [g == 1] and D = [g == 2] - [g == 0].
+//
+// What bounds it on the card: int8 tensor-core operations, 2*S*N^2 for each
+// of the four grams, against S*N/4 bytes of input and 16*N^2 bytes of carry
+// read and written once per chunk.
+//
+// Design: one block owns one 64 x 64 output tile of all four grams and
+// streams the chunk through shared memory in 128-SNP stages. A stage's
+// packed bytes are transposed into one code byte per genotype, sample-major
+// with the SNP axis contiguous, so every mma.sync fragment register is one
+// conflict-free 32-bit shared load. V, H and D are formed from the code
+// bytes in registers with a few bitwise operations, so the basis never
+// exists in memory, and all four grams come from the same fragments through
+// mma.sync.m16n8k32 (s8 x s8 -> s32). The epilogue adds the tile into the
+// carry; each tile has one owner, so no atomics. The full square is
+// computed because H'V is not symmetric. Upper-triangle tiles for the three
+// symmetric grams, wgmma and TMA are later work.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TILE = 64;      // samples per output-tile side
+constexpr int BK = 128;       // SNPs per shared-memory stage
+constexpr int LDS = BK + 16;  // padded row stride (bytes): 36 words, so the
+                              // 8 rows x 4 words of a fragment hit 32 banks
+constexpr int THREADS = 256;  // 8 warps: 2 (rows) x 4 (columns), 32 x 16 each
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four genotype codes, one per byte (0..3, 3 = missing) -> the V, H and D
+// bytes of the same four genotypes (int8; D is -1 as 0xFF).
+__device__ __forceinline__ void basis(uint32_t w, uint32_t &v, uint32_t &h,
+                                      uint32_t &d) {
+  const uint32_t ones = 0x01010101u;
+  const uint32_t lo = w & ones, hi = (w >> 1) & ones;
+  v = ones ^ (lo & hi);             // code != 3
+  h = lo & ~hi;                     // code == 1
+  const uint32_t two = hi & ~lo;    // code == 2 -> +1
+  const uint32_t zero = ones ^ (lo | hi);  // code == 0 -> -1
+  d = two | (zero * 0xFFu);         // 0/1 bytes times 255: no carries
+}
+
+__device__ __forceinline__ uint32_t lds32(const uint8_t *p) {
+  return *reinterpret_cast<const uint32_t *>(p);
+}
+
+__global__ void __launch_bounds__(THREADS)
+gram4_kernel(const uint8_t *__restrict__ packed, int S, int B,
+             int *__restrict__ carry) {
+  __shared__ __align__(16) uint8_t sm[2][TILE][LDS];  // [row|col side][sample][snp]
+
+  const long long N = 4LL * B;
+  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+
+  // Stage fill: thread -> (side, SNP quad q, 16-sample word column wc).
+  // It reads 4 packed words (4 SNPs x 16 samples) and writes 16 words of
+  // 4 code bytes (one sample x 4 SNPs) into its side's tile.
+  const int side = tid >> 7, q = lane, wc = warp & 3;
+  const uint8_t *src = packed + ((side ? j0 : i0) >> 2) + 4 * wc;
+  uint8_t *dst = &sm[side][16 * wc][4 * q];
+
+  int acc[4][2][2][4];  // [gram][m tile][n tile][fragment]
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) acc[x][m][n][f] = 0;
+
+  for (int k0 = 0; k0 < S; k0 += BK) {
+    uint32_t w[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int s = k0 + 4 * q + r;
+      w[r] = s < S ? __ldg(reinterpret_cast<const uint32_t *>(
+                         src + (size_t)s * B))
+                   : 0xFFFFFFFFu;  // past the chunk: missing
+    }
+    __syncthreads();  // the previous stage's fragments are consumed
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int sh = 2 * j;
+      const uint32_t c = ((w[0] >> sh) & 3u) | (((w[1] >> sh) & 3u) << 8) |
+                         (((w[2] >> sh) & 3u) << 16) |
+                         (((w[3] >> sh) & 3u) << 24);
+      *reinterpret_cast<uint32_t *>(dst + j * LDS) = c;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      uint32_t av[2][4], ah[2][4], ad[2][4], bv[2][2], bh[2][2], bd[2][2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const uint8_t *p = &sm[0][wm * 32 + m * 16 + g][kk + 4 * t];
+        basis(lds32(p), av[m][0], ah[m][0], ad[m][0]);
+        basis(lds32(p + 8 * LDS), av[m][1], ah[m][1], ad[m][1]);
+        basis(lds32(p + 16), av[m][2], ah[m][2], ad[m][2]);
+        basis(lds32(p + 8 * LDS + 16), av[m][3], ah[m][3], ad[m][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const uint8_t *p = &sm[1][wn * 16 + n * 8 + g][kk + 4 * t];
+        basis(lds32(p), bv[n][0], bh[n][0], bd[n][0]);
+        basis(lds32(p + 16), bv[n][1], bh[n][1], bd[n][1]);
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          mma_s8(acc[0][m][n], av[m], bv[n]);  // V'V
+          mma_s8(acc[1][m][n], ah[m], bh[n]);  // H'H
+          mma_s8(acc[2][m][n], ad[m], bd[n]);  // D'D
+          mma_s8(acc[3][m][n], ah[m], bv[n]);  // H'V
+        }
+    }
+  }
+
+  // Epilogue: carry += tile (in place). Fragment f sits at row g (+8 for
+  // f >= 2) and column 2t + (f & 1) of its 16 x 8 mma tile.
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const long long r = i0 + wm * 32 + m * 16 + g;
+        const long long c = j0 + wn * 16 + n * 8 + 2 * t;
+        int2 *p = reinterpret_cast<int2 *>(carry + x * N * N + r * N + c);
+        int2 v = p[0];
+        v.x += acc[x][m][n][0];
+        v.y += acc[x][m][n][1];
+        p[0] = v;
+        int2 *p8 = reinterpret_cast<int2 *>(carry + x * N * N + (r + 8) * N + c);
+        v = p8[0];
+        v.x += acc[x][m][n][2];
+        v.y += acc[x][m][n][3];
+        p8[0] = v;
+      }
+}
+
+}  // namespace
+
+// packed: (S, B) uint8, B % 16 == 0; carry: (4, 4B, 4B) int32, updated in
+// place. Launches on `stream`; returns cudaGetLastError().
+extern "C" int gram4_launch(const void *packed, int S, int B, void *carry,
+                            void *stream) {
+  const int tiles = 4 * B / TILE;
+  gram4_kernel<<<dim3(tiles, tiles), THREADS, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t *>(packed), S, B, static_cast<int *>(carry));
+  return static_cast<int>(cudaGetLastError());
+}

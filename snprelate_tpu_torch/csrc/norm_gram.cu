@@ -1,0 +1,178 @@
+// K2b norm_gram: fused 2-bit decode + Eigenstrat normalization + covariance
+// gram, with the GCTA valid-and-polymorphic count gram on request.
+//
+// Replaces snprelate_tpu/ops/pairwise.py:_pca_step (make_pca_block ->
+// _sym_blocks) and _gcta_step. For one packed SNP chunk and its per-SNP
+// avg/scale (from snp_stats) it adds X'X into a float64 (N, N) carry, where
+//   x[s, i] = (g - avg[s]) * scale[s] for a valid call, 0 for a missing one
+// (mean imputation, then centering). With a count carry (GCTA) it also adds
+// the int32 gram of vp[s, i] = valid[s, i] and poly[s].
+//
+// What bounds it on the card: float32 operations, S*N*(N+1) for the
+// symmetric gram (and as many again for the GCTA count gram), against
+// S*N/4 bytes of input and the carries read and written once per chunk.
+//
+// Design: X'X and the count gram are symmetric, so only the tiles on and
+// above the diagonal are computed: one block owns one 64 x 64 upper output
+// tile, adds it into the carry at its place and, transposed, at its mirror
+// place below the diagonal; blocks of lower tiles return at once. A block
+// streams the chunk in 32-SNP stages. Each stage decodes its packed words
+// and normalizes in registers (x in double, rounded once to float), so the
+// normalized block
+// never exists in device memory, and stores float tiles in shared memory
+// with the sample axis contiguous. Each thread accumulates a 4 x 4 block of
+// products with float32 FMAs over one stage, then adds the stage's sums
+// into float64 registers, and those into the float64 carry in the
+// epilogue: float32 sums stay 32 terms long whatever the chunk length,
+// where sums over a whole chunk lose accuracy with its length (PERF.md has
+// the measured errors of both). Products x_i x_j and x_j x_i are summed in
+// the same order within a diagonal tile and the mirrored tiles are copies,
+// so the result is exactly symmetric. The count gram is summed as 0/1
+// floats, exact below 2^24 SNPs per chunk, and converted to int32 in the
+// epilogue. Tensor cores (3xTF32 or FP64 MMA) are later work.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TILE = 64;      // samples per output-tile side
+constexpr int BK = 32;        // SNPs per shared-memory stage
+constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+
+template <bool GCTA>
+__global__ void __launch_bounds__(THREADS)
+norm_gram_kernel(const uint8_t *__restrict__ packed, int S, int B,
+                 const double *__restrict__ avg,
+                 const double *__restrict__ scale,
+                 const bool *__restrict__ poly, double *__restrict__ carry,
+                 int *__restrict__ vcarry) {
+  __shared__ __align__(16) float xs[2][BK][TILE];  // [row|col side][snp][sample]
+  __shared__ __align__(16) float vs[GCTA ? 2 : 1][GCTA ? BK : 1][TILE];
+
+  if (blockIdx.x < blockIdx.y) return;  // a lower tile: written by its mirror
+  const long long N = 4LL * B;
+  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+
+  // Stage fill: thread -> (side, SNP sr, 16-sample word column wc).
+  const int side = tid >> 7, sr = (tid & 127) >> 2, wc = tid & 3;
+  const uint8_t *src = packed + ((side ? j0 : i0) >> 2) + 4 * wc;
+
+  double sum[4][4];
+  float cnt[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      sum[a][b] = 0.0;
+      cnt[a][b] = 0.f;
+    }
+
+  for (int k0 = 0; k0 < S; k0 += BK) {
+    const int s = k0 + sr;
+    uint32_t w = 0xFFFFFFFFu;  // past the chunk: missing
+    double m = 0.0, sc = 0.0;
+    bool pl = false;
+    if (s < S) {
+      w = __ldg(reinterpret_cast<const uint32_t *>(src + (size_t)s * B));
+      m = avg[s];
+      sc = scale[s];
+      if constexpr (GCTA) pl = poly[s];
+    }
+    __syncthreads();  // the previous stage is consumed
+    float x[16], v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const uint32_t c = (w >> (2 * j)) & 3u;
+      x[j] = c != 3u ? (float)(((double)c - m) * sc) : 0.f;
+      v[j] = (c != 3u && pl) ? 1.f : 0.f;
+    }
+    float4 *xd = reinterpret_cast<float4 *>(&xs[side][sr][16 * wc]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      xd[j] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+    if constexpr (GCTA) {
+      float4 *vd = reinterpret_cast<float4 *>(&vs[side][sr][16 * wc]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        vd[j] = make_float4(v[4 * j], v[4 * j + 1], v[4 * j + 2], v[4 * j + 3]);
+    }
+    __syncthreads();
+
+    float acc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < BK; ++k) {
+      const float4 ra = *reinterpret_cast<const float4 *>(&xs[0][k][4 * ty]);
+      const float4 cb = *reinterpret_cast<const float4 *>(&xs[1][k][4 * tx]);
+      const float r[4] = {ra.x, ra.y, ra.z, ra.w};
+      const float c[4] = {cb.x, cb.y, cb.z, cb.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(r[a], c[b], acc[a][b]);
+      if constexpr (GCTA) {
+        const float4 rv = *reinterpret_cast<const float4 *>(&vs[0][k][4 * ty]);
+        const float4 cv = *reinterpret_cast<const float4 *>(&vs[1][k][4 * tx]);
+        const float p[4] = {rv.x, rv.y, rv.z, rv.w};
+        const float q[4] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) cnt[a][b] = fmaf(p[a], q[b], cnt[a][b]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) sum[a][b] += (double)acc[a][b];
+  }
+
+  // Epilogue: carries += tile and, off the diagonal, their mirror tiles +=
+  // its transpose (in place); each pair of tiles has one owner.
+  const bool mirror = i0 != j0;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const long long r = i0 + 4 * ty + a, c = j0 + 4 * tx + b;
+      carry[r * N + c] += sum[a][b];
+      if (mirror) carry[c * N + r] += sum[a][b];
+      if constexpr (GCTA) {
+        const int v = __float2int_rn(cnt[a][b]);
+        vcarry[r * N + c] += v;
+        if (mirror) vcarry[c * N + r] += v;
+      }
+    }
+}
+
+}  // namespace
+
+// packed: (S, B) uint8, B % 16 == 0, S < 2^24; avg, scale: (S,) float64;
+// carry: (4B, 4B) float64, updated in place. With vcarry (4B, 4B) int32
+// (GCTA) it also needs poly (S,) bool and adds the count gram into vcarry
+// in place; with vcarry null, poly is not read. Launches on `stream`;
+// returns cudaGetLastError().
+extern "C" int norm_gram_launch(const void *packed, int S, int B,
+                                const void *avg, const void *scale,
+                                const void *poly, void *carry, void *vcarry,
+                                void *stream) {
+  const int tiles = 4 * B / TILE;
+  const dim3 grid(tiles, tiles);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t *p = static_cast<const uint8_t *>(packed);
+  const double *a = static_cast<const double *>(avg);
+  const double *s = static_cast<const double *>(scale);
+  if (vcarry)
+    norm_gram_kernel<true><<<grid, THREADS, 0, st>>>(
+        p, S, B, a, s, static_cast<const bool *>(poly),
+        static_cast<double *>(carry), static_cast<int *>(vcarry));
+  else
+    norm_gram_kernel<false><<<grid, THREADS, 0, st>>>(
+        p, S, B, a, s, nullptr, static_cast<double *>(carry), nullptr);
+  return static_cast<int>(cudaGetLastError());
+}

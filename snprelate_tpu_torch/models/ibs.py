@@ -1,0 +1,63 @@
+"""Identity-by-state analyses (reference: R/IBS.R + src/genIBS.cpp).
+
+IBS0/1/2 derive in closed form from the count grams (``PairCounts``):
+  ibs2 = #equal genotypes, ibs0 = #opposite homozygotes,
+  ibs1 = #valid - ibs0 - ibs2   (genIBS.cpp:231-243).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..ops.pairwise import pair_counts
+from ..utils.packed import maybe_packed
+from ..workspace import init_workspace
+
+
+@dataclass
+class IBSResult:
+    sample_id: np.ndarray
+    snp_id: np.ndarray
+    ibs: np.ndarray
+
+
+@dataclass
+class IBSNumResult:
+    sample_id: np.ndarray
+    snp_id: np.ndarray
+    ibs0: np.ndarray
+    ibs1: np.ndarray
+    ibs2: np.ndarray
+
+
+def ibs(data, sample_id=None, snp_id=None, autosome_only=True,
+        remove_monosnp=True, maf=math.nan, missing_rate=0.01,
+        verbose=False, chunk=None, checkpoint=None, use_matrix=False,
+        device=None) -> IBSResult:
+    """snpgdsIBS (R/IBS.R:22): average IBS
+    (0.5*IBS1 + IBS2) / (IBS0+IBS1+IBS2) per pair (genIBS.cpp:470-475).
+    use_matrix packs the symmetric output (useMatrix=TRUE analog).
+    device: None = the CUDA card; "cpu" runs the plain versions."""
+    ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
+                           remove_monosnp, maf, missing_rate, verbose=verbose)
+    c = pair_counts(ws, chunk=chunk, checkpoint=checkpoint,
+                    verbose=verbose, device=device)
+    total = c.nvalid.astype(np.float64)
+    with np.errstate(invalid="ignore"):
+        avg = (0.5 * c.ibs1 + c.ibs2) / total
+    return IBSResult(ws.sample_id, ws.snp_id, maybe_packed(avg, use_matrix))
+
+
+def ibs_num(data, sample_id=None, snp_id=None, autosome_only=True,
+            remove_monosnp=True, maf=math.nan, missing_rate=0.01,
+            verbose=False, chunk=None, checkpoint=None,
+            device=None) -> IBSNumResult:
+    """snpgdsIBSNum (R/IBS.R:50): raw IBS0/1/2 counts."""
+    ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
+                           remove_monosnp, maf, missing_rate, verbose=verbose)
+    c = pair_counts(ws, chunk=chunk, checkpoint=checkpoint,
+                    verbose=verbose, device=device)
+    return IBSNumResult(ws.sample_id, ws.snp_id, c.ibs0, c.ibs1, c.ibs2)

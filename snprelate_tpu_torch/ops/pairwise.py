@@ -1,0 +1,345 @@
+"""Fused pairwise accumulation engines of the PyTorch port.
+
+Two engines stream packed 2-bit SNP chunks through the kernels of
+``ops/kernels.py`` into carries that stay on the device:
+
+1. ``pair_counts``: integer-exact pairwise counters from the reduced
+   4-gram basis [V, H, D] (``gram4``, K1): V'V, H'H, D'D and H'V recover
+   IBS0/1/2 (genIBS.cpp:231-243) and the KING counters
+   (genKING.cpp:292-426) in closed form, see ``PairCounts``. Counts
+   accumulate exactly in an int32 carry that is flushed into a host int64
+   accumulator before 2^31 accumulated SNPs (``count_flush_interval``).
+
+2. ``pca_covariance`` / ``gcta_grm_parts``: the Eigenstrat-normalized
+   covariance X'X (CExactPCA::Run, genPCA.cpp:378-465) and the GCTA
+   per-pair denominators (CGCTA_AlgArith::Run, genPCA.cpp:1148-1237):
+   per-SNP statistics (``snp_stats``, K2a), then the normalized gram
+   (``norm_gram``, K2b) into a float64 carry.
+
+Both take the full-square route: the (N, N) carries live on the device.
+Checkpoints use the JAX package's npz layout and meta tuples, so either
+package resumes the other's run.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..utils.device import resolve_device
+from .kernels import (chunk_snp_stats, gram4, norm_gram, normalize,
+                      pca_scale, snp_stats)
+
+# int32 ceiling: every pairwise counter grows by at most 1 per SNP, so an
+# int32 carry is exact up to 2^31 - 1 accumulated SNPs.
+INT32_COUNT_CEILING = 2**31 - 1
+
+
+def _count_ceiling() -> int:
+    """SNPs an int32 count carry can absorb before it could wrap (tests
+    patch this to exercise the flush at toy sizes)."""
+    return INT32_COUNT_CEILING
+
+
+def count_flush_interval(chunk: int) -> int:
+    """Chunks between int32 -> int64 flushes in the streaming count
+    engine: within one interval a counter grows by <= interval * chunk
+    <= ceiling SNPs, so a wrap is impossible."""
+    return max(1, _count_ceiling() // max(1, int(chunk)))
+
+
+def guard_count_snps(n_snp: int, engine: str) -> None:
+    """Refuse selections whose int32 count carries could wrap in engines
+    that do not flush (the GCTA count gram)."""
+    if int(n_snp) > _count_ceiling():
+        raise ValueError(
+            f"{engine}: {n_snp} selected SNPs exceed the int32 count "
+            f"ceiling ({_count_ceiling()}); subset the SNPs")
+
+
+def auto_chunk(n_snp: int, device: torch.device) -> int:
+    """SNPs per streamed chunk. On the card the kernels decode each chunk
+    in shared memory, so device memory holds only the packed chunks in
+    flight (chunk * n_pad / 4 bytes each) and never a decoded block, and
+    the sample count does not enter: the chunk is sized by the work per
+    launch instead, long enough that the (N, N) carry update amortizes,
+    and capped so a selection still streams as several chunks for the host
+    prefetch to overlap. Rounded to a power of two that covers the
+    selection. On the CPU the plain versions materialize the decoded
+    block, and a small fixed chunk keeps it small."""
+    if device.type != "cuda":
+        return 2048
+    need = 1 << max(n_snp - 1, 1023).bit_length()
+    return min(8192, need)
+
+
+def _pad_blocks(n: int, pad_to: int = 128):
+    """(n_pad, nblk) for a raw sample count, as the JAX package pads its
+    block-triangular carries: the checkpoint layout stores nblk*(nblk+1)/2
+    upper blocks of (n_pad/nblk)^2, so the port pads the same way."""
+    for b in (8, 4, 2):
+        step = pad_to * b
+        n_pad = -(-n // step) * step
+        if n_pad >= 1024 * b:
+            return n_pad, b
+    return -(-n // pad_to) * pad_to, 1
+
+
+def _assemble_sym(blocks, nblk: int) -> np.ndarray:
+    """Stacked upper blocks -> full symmetric (N, N) numpy."""
+    blocks = np.asarray(blocks)
+    nb = blocks.shape[1]
+    n = nb * nblk
+    c = np.empty((n, n), blocks.dtype)
+    k = 0
+    for a in range(nblk):
+        for b in range(a, nblk):
+            c[a * nb:(a + 1) * nb, b * nb:(b + 1) * nb] = blocks[k]
+            if a != b:
+                c[b * nb:(b + 1) * nb, a * nb:(a + 1) * nb] = blocks[k].T
+            k += 1
+    return c
+
+
+def _upper_blocks(full: np.ndarray, nblk: int) -> list:
+    """Full symmetric (N, N) -> its upper blocks in ``_assemble_sym``
+    order (the checkpoint layout)."""
+    nb = full.shape[0] // nblk
+    return [full[a * nb:(a + 1) * nb, b * nb:(b + 1) * nb]
+            for a in range(nblk) for b in range(a, nblk)]
+
+
+def make_pca_block(geno: torch.Tensor, bayesian: bool = False):
+    """Eigenstrat-normalized float64 block (genPCA.cpp:427-463): mean-impute,
+    center by 2p, scale by 1/sqrt(p(1-p)); zero weight outside (0,1).
+    Plain version of what ``snp_stats`` + ``norm_gram`` fuse."""
+    gsum, gnum, valid = chunk_snp_stats(geno)
+    avg, scale = pca_scale(gsum, gnum, bayesian)
+    return normalize(geno, valid, avg, scale), (gsum, gnum, valid)
+
+
+class PairCounts:
+    """Closed-form pairwise counters derived from the reduced 4-gram basis
+    (``gram4`` / ``ops.decode.genotype_basis``).
+
+    Base matrices (all (N, N) integer-exact over valid pairs):
+    ``vv`` = nvalid, ``hh`` = N11 (both het), ``dd`` = D^T D with
+    D = [g==2]-[g==0], ``hv``/``vh`` = per-pair het counts of the first /
+    second sample. With homo := vv + hh - hv - vh = N00 + N22 + N02 + N20
+    (both-homozygous pairs), IBS0 = (homo - dd)/2 and the equal-homozygote
+    count = (homo + dd)/2 — every counter the reference's bit kernels
+    produce (genIBS.cpp:231-243, genKING.cpp:292-426) follows exactly.
+    """
+
+    def __init__(self, vv, hh, dd, hv, vh):
+        self.vv, self.hh, self.dd = vv, hh, dd
+        self.hv, self.vh = hv, vh
+
+    @classmethod
+    def from_grams4(cls, grams4, n: int):
+        """4-tuple (vv, hh, dd, hv) full-square grams -> PairCounts
+        (vh = hv^T by the gram transpose identity)."""
+        vv, hh, dd, hv = (np.asarray(a)[:n, :n].astype(np.int64)
+                          for a in grams4)
+        return cls(vv, hh, dd, hv, hv.T.copy())
+
+    def base(self):
+        """The 5 base matrices (for engine-equivalence tests)."""
+        return (self.vv, self.hh, self.dd, self.hv, self.vh)
+
+    @property
+    def nvalid(self):  # both genotypes valid
+        return self.vv
+
+    @property
+    def _homo_pair(self):  # both homozygous (N00+N22+N02+N20)
+        return self.vv + self.hh - self.hv - self.vh
+
+    @property
+    def ibs0(self):  # opposite homozygotes
+        return (self._homo_pair - self.dd) // 2
+
+    @property
+    def both_hom_eq(self):  # equal homozygotes (N00+N22)
+        return (self._homo_pair + self.dd) // 2
+
+    @property
+    def ibs2(self):  # equal genotypes (genIBS.cpp ibs2 plane logic)
+        return self.both_hom_eq + self.hh
+
+    @property
+    def ibs1(self):
+        return self.nvalid - self.ibs0 - self.ibs2
+
+    @property
+    def sum_sq(self):  # sum (g_i - g_j)^2 over valid pairs
+        return self.ibs1 + 4 * self.ibs0
+
+    @property
+    def n1_het(self):  # loci where first sample is het (and pair valid)
+        return self.hv
+
+    @property
+    def n2_het(self):
+        return self.vh
+
+
+class Checkpointer:
+    """Per-chunk accumulator checkpoints: every ``every`` chunks the carry
+    arrays are written atomically to one npz (``step``, ``n``, ``meta``,
+    ``a0``..); on restart the stream resumes at the saved chunk index. A
+    checkpoint whose meta differs (another selection or chunking) is
+    ignored. Same file layout as the JAX package's Checkpointer."""
+
+    def __init__(self, path, every: int = 64, meta: tuple = ()):
+        self.path = path
+        self.every = max(1, int(every))
+        self.meta = np.asarray(meta, np.int64)
+
+    def load(self):
+        """Returns (start_chunk, carry arrays or None)."""
+        if not self.path or not os.path.exists(self.path):
+            return 0, None
+        with np.load(self.path) as z:
+            if not np.array_equal(z["meta"], self.meta):
+                return 0, None  # different selection/chunking: start over
+            n = int(z["n"])
+            return int(z["step"]), [z[f"a{i}"] for i in range(n)]
+
+    def save(self, step: int, arrays):
+        if not self.path:
+            return
+        tmp = self.path + ".tmp"
+        with open(tmp, "wb") as f:
+            np.savez(f, step=step, n=len(arrays), meta=self.meta,
+                     **{f"a{i}": np.asarray(a) for i, a in enumerate(arrays)})
+        os.replace(tmp, self.path)
+
+    def maybe_save(self, step: int, arrays_fn):
+        if self.path and step % self.every == 0:
+            self.save(step, arrays_fn())
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy()
+
+
+def _stream(ws, chunk, n_pad, device, start_chunk: int = 0, verbose=False,
+            label: str = ""):
+    """Prefetched device chunks with optional progress lines."""
+    from ..parallel.stream import device_chunks
+
+    it = device_chunks(ws, chunk, n_pad, device, start_chunk=start_chunk)
+    if not verbose:
+        yield from it
+        return
+    total = max(1, -(-ws.n_snp // chunk) - start_chunk)
+    for i, x in enumerate(it, 1):
+        yield x
+        print(f"{label}{i}/{total} chunks", flush=True)
+
+
+def pair_counts(ws, chunk=None, pad_to: int = 128, checkpoint=None,
+                checkpoint_every: int = 64, verbose: bool = False,
+                device=None) -> PairCounts:
+    """Run the integer pairwise engine (``gram4``) over a Workspace
+    selection, full-square route. checkpoint=path saves the carries every
+    ``checkpoint_every`` chunks and a rerun resumes."""
+    dev = resolve_device(device)
+    n_pad = -(-ws.n_samp // pad_to) * pad_to
+    if chunk is None:
+        chunk = auto_chunk(ws.n_snp, dev)
+    ck = Checkpointer(checkpoint, checkpoint_every,
+                      meta=(62, ws.n_snp, ws.n_samp, chunk))
+    step, saved = ck.load()
+    # acc: host int64 accumulator the int32 carry flushes into every
+    # count_flush_interval chunks. Checkpoints store 8 arrays (acc + carry)
+    # once a flush has happened, 4 before.
+    acc = None
+    if saved and len(saved) == 8:
+        acc = np.stack(saved[:4]).astype(np.int64)
+        saved = saved[4:]
+    carry = torch.zeros((4, n_pad, n_pad), dtype=torch.int32, device=dev)
+    if saved:
+        carry.copy_(torch.from_numpy(np.stack(saved).astype(np.int32)))
+    flush_every = count_flush_interval(chunk)
+    for packed in _stream(ws, chunk, n_pad, dev, start_chunk=step,
+                          verbose=verbose, label="pair counts: "):
+        gram4(packed, carry)  # in place
+        step += 1
+        if step % flush_every == 0:
+            if acc is None:
+                acc = np.zeros((4, n_pad, n_pad), np.int64)
+            acc += _host(carry)
+            carry.zero_()
+        ck.maybe_save(step, lambda: ([*acc, *_host(carry)]
+                                     if acc is not None
+                                     else list(_host(carry))))
+    total = _host(carry).astype(np.int64)
+    if acc is not None:
+        total += acc
+    return PairCounts.from_grams4(total, ws.n_samp)
+
+
+def pca_covariance(ws, bayesian: bool = False, chunk=None,
+                   pad_to: int = 128, checkpoint=None,
+                   checkpoint_every: int = 64, verbose: bool = False,
+                   device=None) -> np.ndarray:
+    """Exact-PCA genetic covariance (unscaled; CExactPCA::Run), float64."""
+    dev = resolve_device(device)
+    n_pad, nblk = _pad_blocks(ws.n_samp, pad_to)
+    if chunk is None:
+        chunk = auto_chunk(ws.n_snp, dev)
+    ck = Checkpointer(checkpoint, checkpoint_every,
+                      meta=(21, ws.n_snp, ws.n_samp, chunk, int(bayesian),
+                            nblk))
+    step, saved = ck.load()
+    cov = torch.zeros((n_pad, n_pad), dtype=torch.float64, device=dev)
+    if saved:
+        cov.copy_(torch.from_numpy(_assemble_sym(np.stack(saved), nblk)))
+    for packed in _stream(ws, chunk, n_pad, dev, start_chunk=step,
+                          verbose=verbose, label="PCA covariance: "):
+        _gsum, _gnum, avg, scale, _poly = snp_stats(packed, bayesian)
+        norm_gram(packed, avg, scale, cov)  # in place
+        step += 1
+        ck.maybe_save(step, lambda: _upper_blocks(_host(cov), nblk))
+    return _host(cov)[:ws.n_samp, :ws.n_samp].copy()
+
+
+def gcta_grm_parts(ws, chunk=None, pad_to: int = 128,
+                   checkpoint=None, checkpoint_every: int = 64,
+                   verbose: bool = False, device=None):
+    """GCTA GRM numerator + per-pair denominators (CGCTA_AlgArith::Run):
+    GRM = Cov / (2 * (nLocus - Denom)) with Denom = nLocus - VpVp^T.
+    Returns (cov float64, vgram int64, nlocus)."""
+    guard_count_snps(ws.n_snp, "GCTA parts")
+    dev = resolve_device(device)
+    n_pad, nblk = _pad_blocks(ws.n_samp, pad_to)
+    if chunk is None:
+        chunk = auto_chunk(ws.n_snp, dev)
+    nbl = nblk * (nblk + 1) // 2
+    ck = Checkpointer(checkpoint, checkpoint_every,
+                      meta=(31, ws.n_snp, ws.n_samp, chunk, nblk))
+    step, saved = ck.load()
+    cov = torch.zeros((n_pad, n_pad), dtype=torch.float64, device=dev)
+    vgram = torch.zeros((n_pad, n_pad), dtype=torch.int32, device=dev)
+    nlocus = torch.zeros((), dtype=torch.int64, device=dev)
+    if saved:
+        cov.copy_(torch.from_numpy(_assemble_sym(np.stack(saved[:nbl]), nblk)))
+        vgram.copy_(torch.from_numpy(
+            _assemble_sym(np.stack(saved[nbl:2 * nbl]), nblk)))
+        nlocus.fill_(int(saved[2 * nbl]))
+    for packed in _stream(ws, chunk, n_pad, dev, start_chunk=step,
+                          verbose=verbose, label="GCTA GRM: "):
+        _gsum, _gnum, avg, scale, poly = snp_stats(packed)
+        norm_gram(packed, avg, scale, cov, poly=poly, vcarry=vgram)  # in place
+        nlocus += poly.sum()
+        step += 1
+        ck.maybe_save(step, lambda: [*_upper_blocks(_host(cov), nblk),
+                                     *_upper_blocks(_host(vgram), nblk),
+                                     np.int32(nlocus.item())])
+    n = ws.n_samp
+    return (_host(cov)[:n, :n].copy(), _host(vgram)[:n, :n].astype(np.int64),
+            int(nlocus.item()))

@@ -1,0 +1,49 @@
+"""Inputs shared by the tests/test_torch_*.py parity tests: one synthetic
+cohort, made from a numpy seed, built as a SNPData of each package, so the
+JAX package (the reference, on the CPU in float64) and the PyTorch port
+(``device="cpu"``, the kernels' plain versions) see the same genotypes."""
+
+from __future__ import annotations
+
+import numpy as np
+
+N_SNP = 3000
+CHUNK = 256  # ragged: 3000 SNPs are 11 full chunks and one of 184
+
+
+def genotypes(n: int, n_snp: int = N_SNP, seed: int = 7,
+              miss: float = 0.02) -> np.ndarray:
+    """(n_snp, n) uint8 genotypes of two populations (Balding-Nichols,
+    F = 0.05), a duplicate pair when n > 3, and missing calls (3)."""
+    rng = np.random.default_rng(seed * 1000 + n)
+    pop = (np.arange(n) >= n // 2).astype(np.int64)
+    anc = rng.uniform(0.05, 0.95, n_snp)
+    freq = np.stack([rng.beta(anc * 19.0, (1.0 - anc) * 19.0)
+                     for _ in range(2)])
+    f = freq.T[:, pop]
+    g = (rng.random((n_snp, n)) < f).astype(np.uint8) \
+        + (rng.random((n_snp, n)) < f)
+    if n > 3:
+        g[:, 3] = g[:, 2]
+    g[::97] = 0  # some monomorphic SNPs for the filter
+    g[rng.random(g.shape) < miss] = 3
+    return g
+
+
+def ids(n: int, n_snp: int = N_SNP):
+    """sample.id, snp.id, position and chromosome (1..22, every 50th SNP
+    on X so the autosome filter has work)."""
+    chrom = 1 + np.arange(n_snp) * 22 // n_snp
+    chrom[::50] = 23
+    return ([f"s{i}" for i in range(n)], np.arange(n_snp) + 1,
+            np.arange(n_snp) * 100, chrom)
+
+
+def datasets(n: int, **kw):
+    """(JAX SNPData, port SNPData) of the same genotypes."""
+    import snprelate_tpu as jsr
+    import snprelate_tpu_torch as tsr
+
+    g = genotypes(n, **kw)
+    args = ids(n, g.shape[0])
+    return jsr.create_geno(g, *args), tsr.create_geno(g, *args)
