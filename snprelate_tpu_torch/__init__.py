@@ -1,6 +1,8 @@
 """snprelate_tpu_torch — the PyTorch / CUDA port of snprelate_tpu for an
-NVIDIA H100: relatedness and PCA from packed 2-bit genotypes, with the
-main path (IBS, KING-robust, GRM, exact PCA) on hand-written CUDA kernels.
+NVIDIA H100: relatedness and PCA from packed 2-bit genotypes on
+hand-written CUDA kernels: IBS, KING (robust and homo), dissimilarity,
+PLINK method-of-moments IBD, individual beta, GRM (GCTA, Eigenstrat, Corr,
+EIGMIX, IndivBeta), EIGMIX, and exact and randomized PCA.
 
 Public functions mirror the JAX package's names and ``snpgds*`` aliases
 and take ``device=``: ``None`` means the CUDA card and raises when there is
@@ -15,6 +17,10 @@ from .models.ibs import ibs, ibs_num
 from .models.king import ibd_king
 from .models.grm import grm
 from .models.pca import pca
+from .models.eigmix import eigmix
+from .models.diss import diss
+from .models.ibd_mom import ibd_mom
+from .models.beta import indiv_beta, indiv_beta_rel
 
 # Reference-style aliases
 snpgdsCreateGeno = create_geno
@@ -23,5 +29,10 @@ snpgdsIBSNum = ibs_num
 snpgdsIBDKING = ibd_king
 snpgdsGRM = grm
 snpgdsPCA = pca
+snpgdsEIGMIX = eigmix
+snpgdsDiss = diss
+snpgdsIBDMoM = ibd_mom
+snpgdsIndivBeta = indiv_beta
+snpgdsIndivBetaRel = indiv_beta_rel
 
 __version__ = "0.1.0"

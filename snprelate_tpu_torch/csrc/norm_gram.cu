@@ -1,12 +1,16 @@
-// K2b norm_gram: fused 2-bit decode + Eigenstrat normalization + covariance
-// gram, with the GCTA valid-and-polymorphic count gram on request.
+// K2b norm_gram: fused 2-bit decode + normalization + covariance gram, with
+// the GCTA valid-and-polymorphic count gram on request.
 //
 // Replaces snprelate_tpu/ops/pairwise.py:_pca_step (make_pca_block ->
-// _sym_blocks) and _gcta_step. For one packed SNP chunk and its per-SNP
-// avg/scale (from snp_stats) it adds X'X into a float64 (N, N) carry, where
+// _sym_blocks) and _gcta_step, and the float grams of _king_homo_step and
+// _eigmix_step. For one packed SNP chunk and its per-SNP avg/scale (from
+// snp_stats) it adds X'X into a float64 (N, N) carry, where
 //   x[s, i] = (g - avg[s]) * scale[s] for a valid call, 0 for a missing one
-// (mean imputation, then centering). With a count carry (GCTA) it also adds
-// the int32 gram of vp[s, i] = valid[s, i] and poly[s].
+// (mean imputation, then centering), or, in indicator mode,
+//   x[s, i] = scale[s] for a valid call, 0 for a missing one,
+// so X'X = sum_s scale[s]^2 v_i v_j, the allele-frequency-weighted validity
+// grams of KING-homo and EIGMIX. With a count carry (GCTA) it also adds the
+// int32 gram of vp[s, i] = valid[s, i] and poly[s].
 //
 // What bounds it on the card: float32 operations, S*N*(N+1) for the
 // symmetric gram (and as many again for the GCTA count gram), against
@@ -45,8 +49,8 @@ __global__ void __launch_bounds__(THREADS)
 norm_gram_kernel(const uint8_t *__restrict__ packed, int S, int B,
                  const double *__restrict__ avg,
                  const double *__restrict__ scale,
-                 const bool *__restrict__ poly, double *__restrict__ carry,
-                 int *__restrict__ vcarry) {
+                 const bool *__restrict__ poly, int indicator,
+                 double *__restrict__ carry, int *__restrict__ vcarry) {
   __shared__ __align__(16) float xs[2][BK][TILE];  // [row|col side][snp][sample]
   __shared__ __align__(16) float vs[GCTA ? 2 : 1][GCTA ? BK : 1][TILE];
 
@@ -85,7 +89,7 @@ norm_gram_kernel(const uint8_t *__restrict__ packed, int S, int B,
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const uint32_t c = (w >> (2 * j)) & 3u;
-      x[j] = c != 3u ? (float)(((double)c - m) * sc) : 0.f;
+      x[j] = c != 3u ? (float)(indicator ? sc : ((double)c - m) * sc) : 0.f;
       v[j] = (c != 3u && pl) ? 1.f : 0.f;
     }
     float4 *xd = reinterpret_cast<float4 *>(&xs[side][sr][16 * wc]);
@@ -153,14 +157,15 @@ norm_gram_kernel(const uint8_t *__restrict__ packed, int S, int B,
 }  // namespace
 
 // packed: (S, B) uint8, B % 16 == 0, S < 2^24; avg, scale: (S,) float64;
+// indicator: 0 or 1 (x = scale on valid calls; avg is then unused);
 // carry: (4B, 4B) float64, updated in place. With vcarry (4B, 4B) int32
 // (GCTA) it also needs poly (S,) bool and adds the count gram into vcarry
 // in place; with vcarry null, poly is not read. Launches on `stream`;
 // returns cudaGetLastError().
 extern "C" int norm_gram_launch(const void *packed, int S, int B,
                                 const void *avg, const void *scale,
-                                const void *poly, void *carry, void *vcarry,
-                                void *stream) {
+                                const void *poly, int indicator, void *carry,
+                                void *vcarry, void *stream) {
   const int tiles = 4 * B / TILE;
   const dim3 grid(tiles, tiles);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -169,10 +174,11 @@ extern "C" int norm_gram_launch(const void *packed, int S, int B,
   const double *s = static_cast<const double *>(scale);
   if (vcarry)
     norm_gram_kernel<true><<<grid, THREADS, 0, st>>>(
-        p, S, B, a, s, static_cast<const bool *>(poly),
+        p, S, B, a, s, static_cast<const bool *>(poly), indicator,
         static_cast<double *>(carry), static_cast<int *>(vcarry));
   else
     norm_gram_kernel<false><<<grid, THREADS, 0, st>>>(
-        p, S, B, a, s, nullptr, static_cast<double *>(carry), nullptr);
+        p, S, B, a, s, nullptr, indicator, static_cast<double *>(carry),
+        nullptr);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,6 +7,9 @@ Methods:
   Eigenstrat — exact-PCA covariance scaled by (n-1)/trace
                (genPCA.cpp:1636-1647)
   Corr       — GCTA rescaled to unit diagonal (genPCA.cpp:1658-1686)
+  EIGMIX     — 2 x EigMix IBD matrix (genEIGMIX.cpp:645-652); "Weighted"
+               is the same (R/IBD.R:552-556)
+  IndivBeta  — Weir-Goudet beta transformed GRM (genBeta.cpp:263-357)
 """
 
 from __future__ import annotations
@@ -42,18 +45,31 @@ def _gcta(ws, chunk, checkpoint, verbose, device):
 def grm(data, sample_id=None, snp_id=None, autosome_only=True,
         remove_monosnp=True, maf=math.nan, missing_rate=0.01,
         method="GCTA", verbose=False, chunk=None, checkpoint=None,
-        use_matrix=False, with_id=True, device=None) -> GRMResult:
-    """snpgdsGRM (R/IBD.R:543) for GCTA, Eigenstrat and Corr. With
-    checkpoint=path the accumulators are saved every 64 chunks and a rerun
-    resumes. device: None = the CUDA card; "cpu" runs the plain versions."""
-    if method not in ("GCTA", "Eigenstrat", "Corr"):
-        if method in ("Weighted", "EIGMIX", "IndivBeta"):
-            raise NotImplementedError(f"GRM method {method} is not ported yet")
+        use_matrix=False, with_id=True, num_thread=None,
+        device=None) -> GRMResult:
+    """snpgdsGRM (R/IBD.R:543) for GCTA, Eigenstrat, Corr, EIGMIX
+    (= Weighted) and IndivBeta. With checkpoint=path the GCTA/Eigenstrat
+    accumulators are saved every 64 chunks and a rerun resumes. num_thread
+    is accepted and ignored. device: None = the CUDA card; "cpu" runs the
+    plain versions."""
+    if method == "Weighted":
+        # "Weighted GCTA" is the EIGMIX-based GRM (R/IBD.R:552-556)
+        method = "EIGMIX"
+    if method not in ("GCTA", "Eigenstrat", "Corr", "EIGMIX", "IndivBeta"):
         raise ValueError("Invalid 'method'!")
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
     n = ws.n_samp
-    if method == "Eigenstrat":
+    avg_val = None
+    if method == "EIGMIX":
+        from .eigmix import eigmix_ibd_matrix
+        mat = 2.0 * eigmix_ibd_matrix(ws, chunk=chunk, verbose=verbose,
+                                      device=device)
+    elif method == "IndivBeta":
+        from .beta import beta_grm_matrix
+        mat, avg_val = beta_grm_matrix(ws, chunk=chunk, verbose=verbose,
+                                       device=device)
+    elif method == "Eigenstrat":
         mat = pca_covariance(ws, chunk=chunk, checkpoint=checkpoint,
                              verbose=verbose, device=device)
         mat *= (n - 1) / float(np.trace(mat))
@@ -63,7 +79,7 @@ def grm(data, sample_id=None, snp_id=None, autosome_only=True,
             d = np.sqrt(np.diag(mat).copy())
             mat = mat / np.outer(d, d)
             np.fill_diagonal(mat, 1.0)
-    res = GRMResult(ws.sample_id, ws.snp_id, method, mat)
+    res = GRMResult(ws.sample_id, ws.snp_id, method, mat, avg_val)
     if use_matrix:  # useMatrix=TRUE analog (R/IBD.R:546)
         res.grm = PackedSymmetric.from_full(res.grm)
     if not with_id:  # with.id=FALSE (R/IBD.R:543): drop the id vectors

@@ -36,11 +36,12 @@ class IBSNumResult:
 def ibs(data, sample_id=None, snp_id=None, autosome_only=True,
         remove_monosnp=True, maf=math.nan, missing_rate=0.01,
         verbose=False, chunk=None, checkpoint=None, use_matrix=False,
-        device=None) -> IBSResult:
+        num_thread=None, device=None) -> IBSResult:
     """snpgdsIBS (R/IBS.R:22): average IBS
     (0.5*IBS1 + IBS2) / (IBS0+IBS1+IBS2) per pair (genIBS.cpp:470-475).
     use_matrix packs the symmetric output (useMatrix=TRUE analog).
-    device: None = the CUDA card; "cpu" runs the plain versions."""
+    num_thread is accepted and ignored. device: None = the CUDA card;
+    "cpu" runs the plain versions."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
     c = pair_counts(ws, chunk=chunk, checkpoint=checkpoint,
@@ -53,7 +54,7 @@ def ibs(data, sample_id=None, snp_id=None, autosome_only=True,
 
 def ibs_num(data, sample_id=None, snp_id=None, autosome_only=True,
             remove_monosnp=True, maf=math.nan, missing_rate=0.01,
-            verbose=False, chunk=None, checkpoint=None,
+            verbose=False, chunk=None, checkpoint=None, num_thread=None,
             device=None) -> IBSNumResult:
     """snpgdsIBSNum (R/IBS.R:50): raw IBS0/1/2 counts."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,

@@ -1,8 +1,13 @@
-"""KING-robust kinship (reference: R/IBD.R:333-419 + src/genKING.cpp).
+"""KING kinship moment estimators (reference: R/IBD.R:333-419 +
+src/genKING.cpp).
 
-KING-robust post-processes the pairwise counters (genKING.cpp:634-638):
-kinship between families 0.5 - SumSq/(4*min(N1_Aa, N2_Aa)); within a
-family 0.5 - SumSq/(2*(N1_Aa + N2_Aa)); IBS0 fraction = IBS0/nLoci.
+Both estimators post-process the fused pairwise counters:
+- KING-robust (genKING.cpp:634-638): kinship between families
+  0.5 - SumSq/(4*min(N1_Aa, N2_Aa)); within a family
+  0.5 - SumSq/(2*(N1_Aa + N2_Aa)); IBS0 fraction = IBS0/nLoci.
+- KING-homo (genKING.cpp:529-531): theta = 0.5 - SumSq/(8*SumAFreq),
+  k0 = IBS0/(2*SumAFreq2), k1 = 2 - 2*k0 - 4*theta, with
+  SumAFreq(2) = AF-weighted validity grams accumulated per chunk.
 """
 
 from __future__ import annotations
@@ -13,7 +18,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..ops.pairwise import pair_counts
+from ..ops.pairwise import king_homo_counts, pair_counts
 from ..utils.packed import maybe_packed
 from ..workspace import init_workspace
 
@@ -25,6 +30,15 @@ class KINGRobustResult:
     afreq: Optional[np.ndarray]
     IBS0: np.ndarray
     kinship: np.ndarray
+
+
+@dataclass
+class KINGHomoResult:
+    sample_id: np.ndarray
+    snp_id: np.ndarray
+    afreq: Optional[np.ndarray]
+    k0: np.ndarray
+    k1: np.ndarray
 
 
 def _resolve_family(family_id, sample_id, ws) -> np.ndarray:
@@ -60,16 +74,32 @@ def _resolve_family(family_id, sample_id, ws) -> np.ndarray:
 def ibd_king(data, sample_id=None, snp_id=None, autosome_only=True,
              remove_monosnp=True, maf=math.nan, missing_rate=0.01,
              type="KING-robust", family_id=None, verbose=False, chunk=None,
-             use_matrix=False, checkpoint=None, device=None):
-    """snpgdsIBDKING (R/IBD.R:333), KING-robust. use_matrix packs the
-    symmetric outputs (useMatrix=TRUE analog). device: None = the CUDA
-    card; "cpu" runs the plain versions."""
-    if type == "KING-homo":
-        raise NotImplementedError("KING-homo is not ported yet")
-    if type != "KING-robust":
-        raise ValueError("Invalid 'type'.")
+             use_matrix=False, checkpoint=None, num_thread=None,
+             device=None):
+    """snpgdsIBDKING (R/IBD.R:333), KING-robust or KING-homo. use_matrix
+    packs the symmetric outputs (useMatrix=TRUE analog). num_thread is
+    accepted and ignored. device: None = the CUDA card; "cpu" runs the
+    plain versions."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
+
+    if type == "KING-homo":
+        c, waf, waf2 = king_homo_counts(ws, chunk=chunk, verbose=verbose,
+                                        checkpoint=checkpoint, device=device)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            theta = 0.5 - c.sum_sq / (8.0 * waf)
+            k0 = c.ibs0 / (2.0 * waf2)
+            k1 = 2.0 - 2.0 * k0 - 4.0 * theta
+        k0[~np.isfinite(k0)] = np.nan
+        k1[~np.isfinite(k1)] = np.nan
+        np.fill_diagonal(k0, 0.0)
+        np.fill_diagonal(k1, 0.0)
+        return KINGHomoResult(ws.sample_id, ws.snp_id, None,
+                              maybe_packed(k0, use_matrix),
+                              maybe_packed(k1, use_matrix))
+
+    if type != "KING-robust":
+        raise ValueError("Invalid 'type'.")
     fam = _resolve_family(family_id, sample_id, ws)
     c = pair_counts(ws, chunk=chunk, verbose=verbose, checkpoint=checkpoint,
                     device=device)

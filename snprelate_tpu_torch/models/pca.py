@@ -1,5 +1,6 @@
 """Principal component analysis (reference: R/PCA.R + src/genPCA.cpp).
 
+Randomized algorithm: ``models/pca_randomized.py`` (CRandomPCA).
 Exact algorithm: Eigenstrat-normalized covariance Cov = X^T X accumulated
 over SNP chunks on the device (CExactPCA::Run, genPCA.cpp:378-465), scaled
 by (n-1)/trace(Cov) (genPCA.cpp:1387-1390), then a symmetric
@@ -41,18 +42,17 @@ def _eigen_desc(mat: np.ndarray, k: int):
 def pca(data, sample_id=None, snp_id=None, autosome_only=True,
         remove_monosnp=True, maf=math.nan, missing_rate=0.01,
         algorithm="exact", eigen_cnt=32, bayesian=False, need_genmat=False,
-        genmat_only=False, eigen_method="DSPEVX", verbose=False, chunk=None,
-        checkpoint=None, device=None) -> PCAResult:
-    """snpgdsPCA (R/PCA.R:22-91), exact algorithm. eigen_method "DSPEVX"
-    (top eigen_cnt pairs) or "DSPEV" (all pairs) both map to the same
-    descending eigh. device: None = the CUDA card; "cpu" runs the plain
-    versions."""
+        genmat_only=False, eigen_method="DSPEVX", aux_dim=None, iter_num=10,
+        seed=None, verbose=False, chunk=None, checkpoint=None,
+        num_thread=None, device=None) -> PCAResult:
+    """snpgdsPCA (R/PCA.R:22-91), exact or randomized algorithm.
+    eigen_method "DSPEVX" (top eigen_cnt pairs) or "DSPEV" (all pairs) both
+    map to the same descending eigh. aux_dim (default 2 eigen_cnt),
+    iter_num and seed drive the randomized algorithm. num_thread is
+    accepted and ignored. device: None = the CUDA card; "cpu" runs the
+    plain versions."""
     if eigen_method not in ("DSPEVX", "DSPEV"):
         raise ValueError("Invalid 'eigen.method'.")
-    if algorithm == "randomized":
-        raise NotImplementedError("randomized PCA is not ported yet")
-    if algorithm != "exact":
-        raise ValueError("Invalid 'algorithm'.")
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
     n = ws.n_samp
@@ -60,6 +60,15 @@ def pca(data, sample_id=None, snp_id=None, autosome_only=True,
         need_genmat = True
     if eigen_cnt <= 0:
         eigen_cnt = n
+
+    if algorithm == "randomized":
+        from .pca_randomized import randomized_pca
+        return randomized_pca(ws, eigen_cnt=eigen_cnt,
+                              aux_dim=aux_dim or 2 * eigen_cnt,
+                              iter_num=iter_num, seed=seed, chunk=chunk,
+                              device=device)
+    if algorithm != "exact":
+        raise ValueError("Invalid 'algorithm'.")
 
     cov = pca_covariance(ws, bayesian=bayesian, chunk=chunk, verbose=verbose,
                          checkpoint=checkpoint, device=device)

@@ -1,0 +1,229 @@
+"""Randomized PCA (reference: CRandomPCA, src/genPCA.cpp:472-803 — the
+FastPCA/Galinsky randomized subspace iteration) on the port's kernels:
+
+  Y: (nSNP x nSamp) normalized genotypes, scale 1/sqrt(2p(1-p)), missing->0
+  H_i = Y G_i;  G_{i+1} = Y' H_i / nSNP             (power iterations)
+  H = [H_0 .. H_I];  U_H = orthonormal basis of span(H)
+  T = U_H' Y;  eigenvectors = right singular vectors of T
+
+Per chunk, ``snp_stats`` (K2a, randomized kind) gives avg, scale and the
+trace term, ``rand_h`` (K3a) computes H = Y G and ``rand_yt`` (K3b) adds
+Y' H into G_next and Y' U_H into T' (T kept transposed, (n_pad, hsize)).
+The normalized block Y never exists in device memory.
+
+This is the PCA route for large cohorts: exact PCA keeps an n x n float64
+covariance on the device, which at 100,000 samples no longer fits.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..ops.kernels import rand_h, rand_yt, snp_stats
+from ..ops.pairwise import _stream
+from ..utils.device import resolve_device
+
+
+def _cache_budget(device: torch.device) -> int:
+    """Bytes the cached route may keep on ``device``: 90 % of the card's
+    free memory, counting blocks PyTorch has cached but not allocated, or
+    half the host's memory for ``device="cpu"``."""
+    if device.type == "cuda":
+        free = torch.cuda.mem_get_info(device)[0]
+        cached = (torch.cuda.memory_reserved(device)
+                  - torch.cuda.memory_allocated(device))
+        return int(0.9 * (free + cached))
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES") // 2
+
+
+def _cached_bytes(n_chunks: int, chunk: int, n_pad: int, aux_dim: int,
+                  hsize: int) -> int:
+    """Device bytes of the cached route: the packed chunks, H (the
+    per-pass parts and their concatenation, then its Q), G and G_next, and
+    T'. Nothing decoded is kept: the kernels decode in registers."""
+    m_pad = n_chunks * chunk
+    return (m_pad * (n_pad // 4) + 2 * 8 * m_pad * hsize
+            + 2 * 8 * n_pad * aux_dim + 8 * n_pad * hsize)
+
+
+def _g0(seed, n: int, n_pad: int, aux_dim: int) -> np.ndarray:
+    """The starting G, drawn on the host as the JAX package draws it
+    (pca_randomized.py:249-252), so both packages start from the same G."""
+    g = np.zeros((n_pad, aux_dim))
+    g[:n] = np.random.default_rng(seed).standard_normal((n, aux_dim))
+    return g
+
+
+def _result(ws, eigenval, eigenvect, vp, trace2):
+    from .pca import PCAResult
+
+    return PCAResult(ws.sample_id, ws.snp_id, eigenval, eigenvect, vp,
+                     trace2, False, None)
+
+
+def _randomized_pca_cached(ws, eigen_cnt, aux_dim, iter_num, seed, chunk,
+                           n_pad, dev, p_all=None):
+    """Device-resident randomized PCA: packed chunks staged on the device
+    once (or given as ``p_all``), the per-SNP statistics computed once,
+    every pass a loop of kernel launches over the staged chunks, the span
+    basis (QR) and the projection on the device; only the (hsize x hsize)
+    eigensolve and the final eigenvectors on the host."""
+    n, m = ws.n_samp, ws.n_snp
+    nbytes = n_pad // 4
+    n_chunks = -(-m // chunk)
+    if p_all is None:
+        host = np.empty((n_chunks, chunk, nbytes), np.uint8)
+        for i, (_s, packed) in enumerate(ws.packed_chunks(chunk,
+                                                          pad_bytes=nbytes)):
+            host[i] = packed
+        p_all = torch.from_numpy(host).to(dev)
+        del host
+    elif (p_all.dtype != torch.uint8 or p_all.device != dev
+          or tuple(p_all.shape) != (n_chunks, chunk, nbytes)
+          or not p_all.is_contiguous()):
+        raise ValueError(
+            f"p_all: expected a contiguous uint8 tensor of shape "
+            f"{(n_chunks, chunk, nbytes)} on {dev}, got {p_all.dtype} "
+            f"{tuple(p_all.shape)} on {p_all.device}")
+
+    # padded SNP rows and samples are missing-coded, so y == 0 there: they
+    # change neither the span nor T (pca_randomized.py:258-260)
+    stats = [snp_stats(p_all[i], "randomized") for i in range(n_chunks)]
+    trace_xtx = float(torch.stack([st[5].sum() for st in stats]).sum())
+    g_mat = torch.from_numpy(_g0(seed, n, n_pad, aux_dim)).to(dev)
+
+    h_parts = []
+    for it in range(iter_num + 1):
+        h = torch.empty((n_chunks * chunk, aux_dim), dtype=torch.float64,
+                        device=dev)
+        for i, st in enumerate(stats):
+            rand_h(p_all[i], st[2], st[3], g_mat,
+                   h[i * chunk:(i + 1) * chunk])
+        h_parts.append(h)
+        if it < iter_num:
+            g_next = torch.zeros_like(g_mat)
+            for i, st in enumerate(stats):
+                rand_yt(p_all[i], st[2], st[3],
+                        h[i * chunk:(i + 1) * chunk], g_next)
+            g_mat = g_next / m  # m, not the padded count (:264)
+
+    # any orthonormal basis of span(H) gives the same projector, hence the
+    # same factorization: QR in place of the streamed route's SVD (:214)
+    q = torch.linalg.qr(torch.cat(h_parts, dim=1))[0].contiguous()
+    del h_parts
+    hsize = q.shape[1]
+    t_tr = torch.zeros((n_pad, hsize), dtype=torch.float64, device=dev)
+    for i, st in enumerate(stats):
+        rand_yt(p_all[i], st[2], st[3], q[i * chunk:(i + 1) * chunk], t_tr)
+
+    # SVD of T via the (hsize x hsize) Gram: sigma^2 = eig(T T'), right
+    # singular vectors v_k = T' u_k / sigma_k (:269-292)
+    b = (t_tr.T @ t_tr).cpu().numpy()
+    w, u = np.linalg.eigh(b)
+    order = np.argsort(w)[::-1][:eigen_cnt]
+    sigma = np.sqrt(np.maximum(w[order], 0.0))
+    u_sig = u[:, order] / np.where(sigma > 0, sigma, 1.0)
+    eigenvect = (t_tr @ torch.from_numpy(
+        np.ascontiguousarray(u_sig)).to(dev)).cpu().numpy()[:n]
+
+    trace2 = 2.0 * trace_xtx
+    vp = np.full(n, np.nan)
+    k = min(len(w), n)
+    sig_all = np.sqrt(np.maximum(np.sort(w)[::-1][:k], 0.0))
+    vp[:k] = 2.0 * sig_all**2 / trace2
+    return _result(ws, (n - 1) * vp, eigenvect, vp, trace2)
+
+
+def _randomized_pca_streamed(ws, eigen_cnt, aux_dim, iter_num, seed, chunk,
+                             n_pad, dev):
+    """Host-streamed randomized PCA (pca_randomized.py:505-558): chunks
+    stream host -> device on every pass, H is kept on the host, its span
+    basis is the host SVD of H', and T' accumulates on the device from
+    uploaded basis chunks."""
+    n, m = ws.n_samp, ws.n_snp
+    hsize = aux_dim * (iter_num + 1)
+    g_mat = torch.from_numpy(_g0(seed, n, n_pad, aux_dim)).to(dev)
+
+    def chunks():
+        for i, packed in enumerate(_stream(ws, chunk, n_pad, dev)):
+            _, _, avg, scale, _, y2 = snp_stats(packed, "randomized")
+            yield i * chunk, min(chunk, m - i * chunk), packed, avg, scale, y2
+
+    def upload(rows: np.ndarray) -> torch.Tensor:
+        """(take, c) host rows -> (chunk, c) device rows, zero-padded."""
+        out = np.zeros((chunk, rows.shape[1]))
+        out[:len(rows)] = rows
+        return torch.from_numpy(out).to(dev)
+
+    H = np.empty((m, hsize))
+    trace_xtx = 0.0
+    hb = torch.empty((chunk, aux_dim), dtype=torch.float64, device=dev)
+    for it in range(iter_num + 1):
+        cols = slice(it * aux_dim, (it + 1) * aux_dim)
+        for start, take, packed, avg, scale, y2 in chunks():
+            rand_h(packed, avg, scale, g_mat, hb)
+            H[start:start + take, cols] = hb[:take].cpu().numpy()
+            if it == 0:
+                trace_xtx += float(y2.sum())
+        if it < iter_num:
+            g_next = torch.zeros_like(g_mat)
+            for start, take, packed, avg, scale, _ in chunks():
+                rand_yt(packed, avg, scale,
+                        upload(H[start:start + take, cols]), g_next)
+            g_mat = g_next / m
+
+    # U_H: orthonormal basis of span(H) via the SVD of H' (svd_vt, "O")
+    uh = np.linalg.svd(H.T, full_matrices=False)[2].T  # (m, hsize)
+    t_tr = torch.zeros((n_pad, hsize), dtype=torch.float64, device=dev)
+    for start, take, packed, avg, scale, _ in chunks():
+        rand_yt(packed, avg, scale, upload(uh[start:start + take]), t_tr)
+    T = t_tr.cpu().numpy()[:n].T  # (hsize, n)
+
+    _ut, sigma, vt2 = np.linalg.svd(T, full_matrices=False)
+    eigenvect = vt2.T[:, :eigen_cnt]
+    # R/PCA.R:80-88: vp = 2*sigma^2/TraceXTX with TraceXTX = 2*trace(Y.Y)
+    trace2 = 2.0 * trace_xtx
+    k = min(len(sigma), n)
+    vp = np.full(n, np.nan)
+    vp[:k] = 2.0 * sigma[:k] ** 2 / trace2
+    return _result(ws, (n - 1) * vp, eigenvect, vp, trace2)
+
+
+def randomized_pca(ws, eigen_cnt=16, aux_dim=None, iter_num=10, seed=None,
+                   chunk=None, p_all=None, device=None):
+    """Randomized PCA over a Workspace selection, on one device.
+
+    The cached route stages the packed chunks on the device once (or takes
+    ``p_all``, a contiguous uint8 (n_chunks, chunk, n_pad/4) tensor on the
+    device) when they and the factors fit ``_cache_budget``; otherwise the
+    streamed route re-streams the chunks from the host on every pass.
+    Returns a PCAResult with the reference's eigval = (n-1) 2 sigma^2 /
+    TraceXTX semantics (R/PCA.R:80-88). device: None = the CUDA card;
+    "cpu" runs the plain versions."""
+    dev = resolve_device(device)
+    n, m = ws.n_samp, ws.n_snp
+    if chunk is None:
+        chunk = 4096 if p_all is None else p_all.shape[1]
+    if aux_dim is None:
+        aux_dim = 2 * eigen_cnt
+    hsize = aux_dim * (iter_num + 1)
+    n_pad = -(-n // 128) * 128
+    n_chunks = -(-m // chunk)
+
+    # the span basis cannot have more vectors than (padded) SNPs
+    if hsize > n_chunks * chunk:
+        raise ValueError(
+            f"aux_dim*(iter_num+1) = {hsize} exceeds the padded SNP count "
+            f"{n_chunks * chunk}; reduce aux_dim/iter_num or use "
+            "algorithm='exact' (the subspace cannot be wider than the "
+            "SNP dimension)")
+
+    if p_all is not None or _cached_bytes(
+            n_chunks, chunk, n_pad, aux_dim, hsize) <= _cache_budget(dev):
+        return _randomized_pca_cached(ws, eigen_cnt, aux_dim, iter_num,
+                                      seed, chunk, n_pad, dev, p_all=p_all)
+    return _randomized_pca_streamed(ws, eigen_cnt, aux_dim, iter_num, seed,
+                                    chunk, n_pad, dev)

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels of the main path, each beside its plain
+"""The hand-written CUDA kernels of the ported paths, each beside its plain
 PyTorch version.
 
 Every wrapper checks its tensors and then: on CPU tensors runs the plain
@@ -8,8 +8,16 @@ current stream or raises. There is no fallback from one to the other.
 kernels its path went through.
 
 - ``gram4``     (K1) replaces ops/pairwise.py:_gram4_step of the JAX package
-- ``snp_stats`` (K2a) replaces chunk_snp_stats + the avg/scale of make_pca_block
-- ``norm_gram`` (K2b) replaces _pca_step and, with a count carry, _gcta_step
+- ``snp_stats`` (K2a) replaces chunk_snp_stats + the avg/scale of
+  make_pca_block, and the per-SNP factors of _rand_block, _king_homo_step
+  and _eigmix_step
+- ``norm_gram`` (K2b) replaces _pca_step and, with a count carry,
+  _gcta_step; in indicator mode the weighted validity grams of
+  _king_homo_step and _eigmix_step
+- ``rand_h``    (K3a) replaces pca_randomized.py:_h_step (H = Y G)
+- ``rand_yt``   (K3b) replaces pca_randomized.py:_g_step and _t_step
+  (carry += Y' M)
+- ``het_count`` (K5) replaces the per-sample het count of _eigmix_step
 """
 
 from __future__ import annotations
@@ -24,8 +32,11 @@ from .decode import decode2bit, genotype_basis
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "gram4": (_P, _I, _I, _P, _P),
-    "snp_stats": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
-    "norm_gram": (_P, _I, _I, _P, _P, _P, _P, _P, _P),
+    "snp_stats": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "norm_gram": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P),
+    "rand_h": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P),
+    "rand_yt": (_P, _I, _I, _P, _P, _P, _I, _P, _P),
+    "het_count": (_P, _I, _I, _P, _P),
 }
 
 
@@ -62,12 +73,11 @@ def _check_packed(packed: torch.Tensor) -> tuple[int, int]:
 
 
 def _gram(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """x' y of 0/±1 integer (S, N) blocks as exact int64 counts. torch has
-    no integer matmul on CUDA (and int8 matmul wraps), so the card takes
-    float64, exact below 2^53."""
-    if x.is_cuda:
-        return (x.double().T @ y.double()).to(torch.int64)
-    return x.long().T @ y.long()
+    """x' y of 0/±1 integer (S, N) blocks as exact int64 counts, through a
+    float64 product: exact below 2^53, and a BLAS product on either device
+    (torch has no integer matmul on CUDA, int8 matmul wraps, and the CPU's
+    int64 matmul is some 40x slower)."""
+    return (x.double().T @ y.double()).to(torch.int64)
 
 
 # ---------------------------------------------------------------- K1 gram4
@@ -95,6 +105,12 @@ gram4.launches = 0
 
 # ------------------------------------------------------------ K2a snp_stats
 
+# The per-SNP scale kinds of snp_stats, in the kernel's numbering.
+SCALE_KINDS = ("eigenstrat", "bayesian", "randomized", "unit", "king_w",
+               "eigmix_d")
+_EXTRA_KINDS = ("randomized", "king_w")
+
+
 def chunk_snp_stats(geno: torch.Tensor):
     """Per-SNP sum/num over a decoded chunk (S, N): the analog of
     SummarizeGeno_SampxSNP + DivideGeno (genPCA.cpp:84-141)."""
@@ -103,45 +119,77 @@ def chunk_snp_stats(geno: torch.Tensor):
     return g.sum(1, dtype=torch.int32), valid.sum(1, dtype=torch.int32), valid
 
 
-def pca_scale(gsum: torch.Tensor, gnum: torch.Tensor, bayesian: bool):
-    """Per-SNP mean and Eigenstrat scale 1/sqrt(p(1-p)), zero outside
-    (0, 1) (genPCA.cpp:427-463), in float64."""
+def pca_scale(gsum: torch.Tensor, gnum: torch.Tensor,
+              kind: str = "eigenstrat"):
+    """Per-SNP mean and scale of one of ``SCALE_KINDS``, in float64:
+    eigenstrat 1/sqrt(p(1-p)) and randomized 1/sqrt(2p(1-p)), zero outside
+    (0, 1) (genPCA.cpp:427-463, 501-528); bayesian with p from (sum+1) /
+    (2 num+2); unit 1; king_w sqrt(p(1-p)) (genKING.cpp:246-251); eigmix_d
+    sqrt(4p(1-p)) (genEIGMIX.cpp:43-157). p = avg / 2."""
     gs, gn = gsum.double(), gnum.double()
     avg = torch.where(gnum > 0, gs / gn, 0.0)
-    if bayesian:
-        s = (gs + 1.0) / (2.0 * gn + 2.0)
-        scale = 1.0 / torch.sqrt(s * (1.0 - s))
+    p = avg * 0.5
+    inside = (p > 0) & (p < 1)
+    if kind == "eigenstrat":
+        scale = torch.where(inside, 1.0 / torch.sqrt(p * (1.0 - p)), 0.0)
+    elif kind == "bayesian":
+        q = (gs + 1.0) / (2.0 * gn + 2.0)
+        scale = 1.0 / torch.sqrt(q * (1.0 - q))
+    elif kind == "randomized":
+        scale = torch.where(inside, 1.0 / torch.sqrt(2.0 * p * (1.0 - p)),
+                            0.0)
+    elif kind == "unit":
+        scale = torch.ones_like(avg)
+    elif kind == "king_w":
+        scale = torch.sqrt(p * (1.0 - p))
+    elif kind == "eigmix_d":
+        scale = torch.sqrt(4.0 * p * (1.0 - p))
     else:
-        s = avg * 0.5
-        scale = torch.where((s > 0) & (s < 1),
-                            1.0 / torch.sqrt(s * (1.0 - s)), 0.0)
+        raise ValueError(f"unknown scale kind {kind!r}; one of {SCALE_KINDS}")
     return avg, scale
 
 
-def snp_stats_plain(packed: torch.Tensor, bayesian: bool = False):
+def snp_stats_plain(packed: torch.Tensor, kind: str = "eigenstrat"):
     """Plain version of :func:`snp_stats`."""
-    gsum, gnum, _ = chunk_snp_stats(decode2bit(packed))
-    avg, scale = pca_scale(gsum, gnum, bayesian)
-    return gsum, gnum, avg, scale, (gsum > 0) & (gsum < 2 * gnum)
+    geno = decode2bit(packed)
+    gsum, gnum, valid = chunk_snp_stats(geno)
+    avg, scale = pca_scale(gsum, gnum, kind)
+    extra = None
+    if kind == "randomized":
+        y = normalize(geno, valid, avg, scale)
+        extra = (y * y).sum(1)
+    elif kind == "king_w":
+        p = avg * 0.5
+        extra = p * (1.0 - p)
+    return gsum, gnum, avg, scale, (gsum > 0) & (gsum < 2 * gnum), extra
 
 
-def snp_stats(packed: torch.Tensor, bayesian: bool = False):
+def snp_stats(packed: torch.Tensor, kind: str = "eigenstrat"):
     """Per-SNP (gsum int32, gnum int32, avg float64, scale float64, poly
-    bool) of one packed (S, N/4) chunk; 0xFF padding is missing."""
+    bool, extra float64 or None) of one packed (S, N/4) chunk; 0xFF
+    padding is missing. ``kind`` is one of ``SCALE_KINDS`` (see
+    :func:`pca_scale`); ``extra`` is the sum of the squared normalized
+    genotypes (randomized, the trace term) or w = p(1-p) (king_w), else
+    None."""
+    if kind not in SCALE_KINDS:
+        raise ValueError(f"unknown scale kind {kind!r}; one of {SCALE_KINDS}")
     S, B = _check_packed(packed)
     if not packed.is_cuda:
-        return snp_stats_plain(packed, bayesian)
+        return snp_stats_plain(packed, kind)
     dev = packed.device
     gsum = torch.empty(S, dtype=torch.int32, device=dev)
     gnum = torch.empty(S, dtype=torch.int32, device=dev)
     avg = torch.empty(S, dtype=torch.float64, device=dev)
     scale = torch.empty(S, dtype=torch.float64, device=dev)
     poly = torch.empty(S, dtype=torch.bool, device=dev)
-    _launch("snp_stats", dev, packed.data_ptr(), S, B, int(bool(bayesian)),
-            gsum.data_ptr(), gnum.data_ptr(), avg.data_ptr(),
-            scale.data_ptr(), poly.data_ptr())
+    extra = (torch.empty(S, dtype=torch.float64, device=dev)
+             if kind in _EXTRA_KINDS else None)
+    _launch("snp_stats", dev, packed.data_ptr(), S, B,
+            SCALE_KINDS.index(kind), gsum.data_ptr(), gnum.data_ptr(),
+            avg.data_ptr(), scale.data_ptr(), poly.data_ptr(),
+            None if extra is None else extra.data_ptr())
     snp_stats.launches += 1
-    return gsum, gnum, avg, scale, poly
+    return gsum, gnum, avg, scale, poly, extra
 
 
 snp_stats.launches = 0
@@ -151,16 +199,21 @@ snp_stats.launches = 0
 
 def normalize(geno: torch.Tensor, valid: torch.Tensor, avg: torch.Tensor,
               scale: torch.Tensor) -> torch.Tensor:
-    """Eigenstrat-normalized float64 block: mean-impute, center, scale."""
+    """Normalized float64 block: mean-impute, center, scale (a missing
+    call is 0 after centering)."""
     a = avg[:, None]
     return (torch.where(valid, geno.double(), a) - a) * scale[:, None]
 
 
-def norm_gram_plain(packed, avg, scale, carry, poly=None, vcarry=None):
+def norm_gram_plain(packed, avg, scale, carry, poly=None, vcarry=None,
+                    indicator=False):
     """Plain version of :func:`norm_gram`, in float64."""
     geno = decode2bit(packed)
     valid = geno < 3
-    x = normalize(geno, valid, avg, scale)
+    if indicator:
+        x = torch.where(valid, scale[:, None], 0.0)
+    else:
+        x = normalize(geno, valid, avg, scale)
     carry += x.T @ x
     if vcarry is not None:
         vp = valid & poly[:, None]
@@ -169,11 +222,14 @@ def norm_gram_plain(packed, avg, scale, carry, poly=None, vcarry=None):
 
 def norm_gram(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
               carry: torch.Tensor, poly: torch.Tensor | None = None,
-              vcarry: torch.Tensor | None = None) -> None:
-    """carry (N, N) float64 += X'X of the Eigenstrat-normalized chunk
-    (missing calls mean-imputed, so 0 after centering), updated in place.
-    With vcarry (N, N) int32 (GCTA), also vcarry += the count gram of
-    valid-and-polymorphic calls, in place; ``poly`` is then required."""
+              vcarry: torch.Tensor | None = None,
+              indicator: bool = False) -> None:
+    """carry (N, N) float64 += X'X of the normalized chunk (missing calls
+    mean-imputed, so 0 after centering), updated in place. In indicator
+    mode x = scale on valid calls and 0 on missing ones (avg unused), so
+    X'X = sum_s scale_s^2 v_i v_j. With vcarry (N, N) int32 (GCTA), also
+    vcarry += the count gram of valid-and-polymorphic calls, in place;
+    ``poly`` is then required."""
     S, B = _check_packed(packed)
     dev, n = packed.device, 4 * B
     _check(avg, "avg", torch.float64, (S,), dev)
@@ -182,21 +238,131 @@ def norm_gram(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
     if vcarry is not None:
         if poly is None:
             raise ValueError("norm_gram: a count carry needs poly")
+        if indicator:
+            raise ValueError("norm_gram: no count carry in indicator mode")
         _check(poly, "poly", torch.bool, (S,), dev)
         _check(vcarry, "vcarry", torch.int32, (n, n), dev)
     if not packed.is_cuda:
-        return norm_gram_plain(packed, avg, scale, carry, poly, vcarry)
+        return norm_gram_plain(packed, avg, scale, carry, poly, vcarry,
+                               indicator)
     if S >= 1 << 24:
         raise ValueError("norm_gram: chunks must be shorter than 2^24 SNPs "
                          "(exact float32 counts)")
     gcta = vcarry is not None
     _launch("norm_gram", dev, packed.data_ptr(), S, B, avg.data_ptr(),
             scale.data_ptr(), poly.data_ptr() if gcta else None,
-            carry.data_ptr(), vcarry.data_ptr() if gcta else None)
+            int(bool(indicator)), carry.data_ptr(),
+            vcarry.data_ptr() if gcta else None)
     norm_gram.launches += 1
 
 
 norm_gram.launches = 0
 
+
+# --------------------------------------------------- K3a rand_h, K3b rand_yt
+
+def rand_block(packed: torch.Tensor, avg: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """The randomized-PCA block Y (S, N) float64: (g - avg) * scale on
+    valid calls, 0 on missing ones (thread_lookup_y, genPCA.cpp:501-528)."""
+    geno = decode2bit(packed)
+    return torch.where(geno < 3,
+                       (geno.double() - avg[:, None]) * scale[:, None], 0.0)
+
+
+def _check_rand(packed, avg, scale):
+    S, B = _check_packed(packed)
+    _check(avg, "avg", torch.float64, (S,), packed.device)
+    _check(scale, "scale", torch.float64, (S,), packed.device)
+    return S, B
+
+
+def _h_slice(n: int, rows: int, device: torch.device) -> int:
+    """Samples per slice of rand_h's sample axis: enough slices that the
+    (row tiles x column tiles x slices) grid gives about four blocks per
+    SM, each slice a multiple of 32 samples and at least 512 long."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = max(1, min(-(-4 * sms // max(rows, 1)), n // 512))
+    return -(-n // want // 32) * 32
+
+
+def rand_h_plain(packed, avg, scale, g, h) -> None:
+    """Plain version of :func:`rand_h`, in float64."""
+    h.copy_(rand_block(packed, avg, scale) @ g)
+
+
+def rand_h(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
+           g: torch.Tensor, h: torch.Tensor) -> None:
+    """h (S, k) float64 = Y G of the randomized-PCA block of one packed
+    (S, N/4) chunk and g (N, k) float64, written in place."""
+    S, B = _check_rand(packed, avg, scale)
+    dev, n = packed.device, 4 * B
+    if g.dim() != 2:
+        raise ValueError("g: expected a 2-d (N, k) tensor")
+    k = g.shape[1]
+    _check(g, "g", torch.float64, (n, k), dev)
+    _check(h, "h", torch.float64, (S, k), dev)
+    if not packed.is_cuda:
+        return rand_h_plain(packed, avg, scale, g, h)
+    slice_len = _h_slice(n, -(-S // 64) * -(-k // 64), dev)
+    part = torch.empty((-(-n // slice_len), S, k), dtype=torch.float64,
+                       device=dev)
+    _launch("rand_h", dev, packed.data_ptr(), S, B, avg.data_ptr(),
+            scale.data_ptr(), g.data_ptr(), k, slice_len, part.data_ptr(),
+            h.data_ptr())
+    rand_h.launches += 1
+
+
+rand_h.launches = 0
+
+
+def rand_yt_plain(packed, avg, scale, m, carry) -> None:
+    """Plain version of :func:`rand_yt`, in float64."""
+    carry += rand_block(packed, avg, scale).T @ m
+
+
+def rand_yt(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
+            m: torch.Tensor, carry: torch.Tensor) -> None:
+    """carry (N, c) float64 += Y' M of the randomized-PCA block of one
+    packed (S, N/4) chunk and m (S, c) float64, updated in place."""
+    S, B = _check_rand(packed, avg, scale)
+    dev, n = packed.device, 4 * B
+    if m.dim() != 2:
+        raise ValueError("m: expected a 2-d (S, c) tensor")
+    c = m.shape[1]
+    _check(m, "m", torch.float64, (S, c), dev)
+    _check(carry, "carry", torch.float64, (n, c), dev)
+    if not packed.is_cuda:
+        return rand_yt_plain(packed, avg, scale, m, carry)
+    _launch("rand_yt", dev, packed.data_ptr(), S, B, avg.data_ptr(),
+            scale.data_ptr(), m.data_ptr(), c, carry.data_ptr())
+    rand_yt.launches += 1
+
+
+rand_yt.launches = 0
+
+
+# ------------------------------------------------------------ K5 het_count
+
+def het_count_plain(packed: torch.Tensor, carry: torch.Tensor) -> None:
+    """Plain version of :func:`het_count`."""
+    carry += (decode2bit(packed) == 1).sum(0, dtype=torch.int32)
+
+
+def het_count(packed: torch.Tensor, carry: torch.Tensor) -> None:
+    """carry (N,) int32 += per-sample count of heterozygous calls of one
+    packed (S, N/4) chunk, updated in place."""
+    S, B = _check_packed(packed)
+    _check(carry, "carry", torch.int32, (4 * B,), packed.device)
+    if not packed.is_cuda:
+        return het_count_plain(packed, carry)
+    _launch("het_count", packed.device, packed.data_ptr(), S, B,
+            carry.data_ptr())
+    het_count.launches += 1
+
+
+het_count.launches = 0
+
 # the wrappers by kernel name, for code that resets or reads the counts
-KERNELS = {"gram4": gram4, "snp_stats": snp_stats, "norm_gram": norm_gram}
+KERNELS = {"gram4": gram4, "snp_stats": snp_stats, "norm_gram": norm_gram,
+           "rand_h": rand_h, "rand_yt": rand_yt, "het_count": het_count}

@@ -1,6 +1,6 @@
 """Fused pairwise accumulation engines of the PyTorch port.
 
-Two engines stream packed 2-bit SNP chunks through the kernels of
+The engines stream packed 2-bit SNP chunks through the kernels of
 ``ops/kernels.py`` into carries that stay on the device:
 
 1. ``pair_counts``: integer-exact pairwise counters from the reduced
@@ -16,7 +16,13 @@ Two engines stream packed 2-bit SNP chunks through the kernels of
    per-SNP statistics (``snp_stats``, K2a), then the normalized gram
    (``norm_gram``, K2b) into a float64 carry.
 
-Both take the full-square route: the (N, N) carries live on the device.
+3. ``king_homo_counts`` / ``eigmix_parts``: the count grams or the
+   centred covariance beside the allele-frequency-weighted validity grams
+   (K2b in indicator mode) of KING-homo (genKING.cpp:58-266) and EIGMIX
+   (CEigMix_AlgArith::Run, genEIGMIX.cpp:43-157), plus EIGMIX's
+   per-sample het count (``het_count``, K5).
+
+All take the full-square route: the (N, N) carries live on the device.
 Checkpoints use the JAX package's npz layout and meta tuples, so either
 package resumes the other's run.
 """
@@ -24,13 +30,14 @@ package resumes the other's run.
 from __future__ import annotations
 
 import os
+import warnings
 
 import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .kernels import (chunk_snp_stats, gram4, norm_gram, normalize,
-                      pca_scale, snp_stats)
+from .kernels import (chunk_snp_stats, gram4, het_count, norm_gram,
+                      normalize, pca_scale, snp_stats)
 
 # int32 ceiling: every pairwise counter grows by at most 1 per SNP, so an
 # int32 carry is exact up to 2^31 - 1 accumulated SNPs.
@@ -111,12 +118,16 @@ def _upper_blocks(full: np.ndarray, nblk: int) -> list:
             for a in range(nblk) for b in range(a, nblk)]
 
 
+def _pca_kind(bayesian: bool) -> str:
+    return "bayesian" if bayesian else "eigenstrat"
+
+
 def make_pca_block(geno: torch.Tensor, bayesian: bool = False):
     """Eigenstrat-normalized float64 block (genPCA.cpp:427-463): mean-impute,
     center by 2p, scale by 1/sqrt(p(1-p)); zero weight outside (0,1).
     Plain version of what ``snp_stats`` + ``norm_gram`` fuse."""
     gsum, gnum, valid = chunk_snp_stats(geno)
-    avg, scale = pca_scale(gsum, gnum, bayesian)
+    avg, scale = pca_scale(gsum, gnum, _pca_kind(bayesian))
     return normalize(geno, valid, avg, scale), (gsum, gnum, valid)
 
 
@@ -154,6 +165,10 @@ class PairCounts:
         return self.vv
 
     @property
+    def n11(self):  # both het
+        return self.hh
+
+    @property
     def _homo_pair(self):  # both homozygous (N00+N22+N02+N20)
         return self.vv + self.hh - self.hv - self.vh
 
@@ -184,6 +199,10 @@ class PairCounts:
     @property
     def n2_het(self):
         return self.vh
+
+    @property
+    def either_het(self):
+        return self.hv + self.vh - self.hh
 
 
 class Checkpointer:
@@ -301,7 +320,8 @@ def pca_covariance(ws, bayesian: bool = False, chunk=None,
         cov.copy_(torch.from_numpy(_assemble_sym(np.stack(saved), nblk)))
     for packed in _stream(ws, chunk, n_pad, dev, start_chunk=step,
                           verbose=verbose, label="PCA covariance: "):
-        _gsum, _gnum, avg, scale, _poly = snp_stats(packed, bayesian)
+        _gsum, _gnum, avg, scale, _poly, _ = snp_stats(packed,
+                                                       _pca_kind(bayesian))
         norm_gram(packed, avg, scale, cov)  # in place
         step += 1
         ck.maybe_save(step, lambda: _upper_blocks(_host(cov), nblk))
@@ -333,7 +353,7 @@ def gcta_grm_parts(ws, chunk=None, pad_to: int = 128,
         nlocus.fill_(int(saved[2 * nbl]))
     for packed in _stream(ws, chunk, n_pad, dev, start_chunk=step,
                           verbose=verbose, label="GCTA GRM: "):
-        _gsum, _gnum, avg, scale, poly = snp_stats(packed)
+        _gsum, _gnum, avg, scale, poly, _ = snp_stats(packed)
         norm_gram(packed, avg, scale, cov, poly=poly, vcarry=vgram)  # in place
         nlocus += poly.sum()
         step += 1
@@ -343,3 +363,68 @@ def gcta_grm_parts(ws, chunk=None, pad_to: int = 128,
     n = ws.n_samp
     return (_host(cov)[:n, :n].copy(), _host(vgram)[:n, :n].astype(np.int64),
             int(nlocus.item()))
+
+
+def _warn_checkpoint(checkpoint, what: str) -> None:
+    if checkpoint is not None:
+        warnings.warn("checkpoint= is honored on the super-tile routes "
+                      f"only; this {what} selection runs the "
+                      "non-checkpointed in-HBM/row path", stacklevel=3)
+
+
+def king_homo_counts(ws, chunk=None, pad_to: int = 128,
+                     verbose: bool = False, checkpoint=None, device=None):
+    """Returns (PairCounts, SumAFreq, SumAFreq2) for KING-homo
+    (genKING.cpp:58-266): the count grams (``gram4``) and
+    SumAFreq = sum_s w v_i v_j, SumAFreq2 = sum_s w^2 v_i v_j with
+    w = p(1-p), p = sum/(2 num) (0 when num = 0), as two indicator-mode
+    ``norm_gram`` products with per-SNP factors sqrt(w) and w.
+    Full-square route; checkpoint= warns and is not honored, as on the
+    JAX package's in-HBM route."""
+    guard_count_snps(ws.n_snp, "KING-homo counts")
+    _warn_checkpoint(checkpoint, "KING-homo")
+    dev = resolve_device(device)
+    n_pad = -(-ws.n_samp // pad_to) * pad_to
+    if chunk is None:
+        chunk = auto_chunk(ws.n_snp, dev)
+    grams = torch.zeros((4, n_pad, n_pad), dtype=torch.int32, device=dev)
+    waf = torch.zeros((n_pad, n_pad), dtype=torch.float64, device=dev)
+    waf2 = torch.zeros((n_pad, n_pad), dtype=torch.float64, device=dev)
+    for packed in _stream(ws, chunk, n_pad, dev, verbose=verbose,
+                          label="KING-homo: "):
+        gram4(packed, grams)  # in place
+        _gsum, _gnum, avg, sqrt_w, _poly, w = snp_stats(packed, "king_w")
+        norm_gram(packed, avg, sqrt_w, waf, indicator=True)
+        norm_gram(packed, avg, w, waf2, indicator=True)
+    n = ws.n_samp
+    return (PairCounts.from_grams4(_host(grams), n),
+            _host(waf)[:n, :n].copy(), _host(waf2)[:n, :n].copy())
+
+
+def eigmix_parts(ws, chunk=None, pad_to: int = 128, verbose: bool = False,
+                 checkpoint=None, device=None):
+    """Returns (num = X X', denom = sum_s d v_i v_j, het per sample) for
+    EIGMIX (CEigMix_AlgArith::Run, genEIGMIX.cpp:43-157): X the
+    mean-centred unscaled dosage (missing -> 0; ``norm_gram`` with unit
+    scale), d = 4p(1-p) with p = avg/2 (indicator-mode ``norm_gram`` with
+    sqrt(d)), het the per-sample heterozygote count (``het_count``).
+    Full-square route; checkpoint= warns and is not honored, as on the
+    JAX package's in-HBM route."""
+    _warn_checkpoint(checkpoint, "EIGMIX")
+    dev = resolve_device(device)
+    n_pad = -(-ws.n_samp // pad_to) * pad_to
+    if chunk is None:
+        chunk = auto_chunk(ws.n_snp, dev)
+    cov = torch.zeros((n_pad, n_pad), dtype=torch.float64, device=dev)
+    wvg = torch.zeros((n_pad, n_pad), dtype=torch.float64, device=dev)
+    het = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+    for packed in _stream(ws, chunk, n_pad, dev, verbose=verbose,
+                          label="EIGMIX: "):
+        _gsum, _gnum, avg, one, _poly, _ = snp_stats(packed, "unit")
+        norm_gram(packed, avg, one, cov)  # in place
+        sqrt_d = snp_stats(packed, "eigmix_d")[3]
+        norm_gram(packed, avg, sqrt_d, wvg, indicator=True)
+        het_count(packed, het)
+    n = ws.n_samp
+    return (_host(cov)[:n, :n].copy(), _host(wvg)[:n, :n].copy(),
+            _host(het)[:n].astype(np.int64))

@@ -16,4 +16,7 @@ def resolve_device(device=None) -> torch.device:
             "plain PyTorch versions of the kernels on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        # indexed, so it compares equal to the device of a tensor on it
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -89,20 +89,27 @@ def test_device_rule():
 
 
 def test_port_imports_nothing_of_jax():
-    code = ("import sys, snprelate_tpu_torch, snprelate_tpu_torch.ops."
-            "kernels, snprelate_tpu_torch.ops.pairwise, "
-            "snprelate_tpu_torch.parallel.stream\n"
+    """Every module of the port, and chip_smoke.py's module-level imports,
+    load without jax or the JAX package; no source line of either imports
+    them."""
+    code = ("import importlib, pkgutil, sys, snprelate_tpu_torch, chip_smoke\n"
+            "for m in pkgutil.walk_packages(snprelate_tpu_torch.__path__, "
+            "'snprelate_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "'jax.') or m == 'snprelate_tpu' or m.startswith("
             "'snprelate_tpu.')]\n"
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+    sources = [os.path.join(ROOT, "chip_smoke.py")]
     for base, _dirs, files in os.walk(os.path.join(ROOT, "snprelate_tpu_torch")):
-        for fn in files:
-            if fn.endswith(".py"):
-                with open(os.path.join(base, fn)) as f:
-                    src = f.read()
-                for bad in ("import jax", "from jax", "import snprelate_tpu\n",
-                            "from snprelate_tpu.", "from snprelate_tpu "):
-                    assert bad not in src, (fn, bad)
+        sources += [os.path.join(base, fn) for fn in files
+                    if fn.endswith(".py")]
+    for path in sources:
+        with open(path) as f:
+            src = f.read()
+        for bad in ("import jax", "from jax", "import snprelate_tpu\n",
+                    "import snprelate_tpu as", "from snprelate_tpu.",
+                    "from snprelate_tpu "):
+            assert bad not in src, (path, bad)

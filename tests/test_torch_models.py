@@ -1,5 +1,5 @@
-# PyTorch port: the public functions of the main path (IBS, KING-robust,
-# GRM, exact PCA) held against the JAX package on the same cohort. Counts
+# PyTorch port: the public functions of the main path (IBS, KING-robust
+# and KING-homo, GRM, exact PCA) held against the JAX package on the same cohort. Counts
 # bit-equal; floats within 1e-9 of the largest entry (float64 on both
 # sides, summed in another order).
 import numpy as np
@@ -51,8 +51,13 @@ def test_ibd_king_robust(pair):
         got = tsr.ibd_king(tdata, device="cpu", **kw, **KW)
         _close(got.kinship, want.kinship)
         _close(got.IBS0, want.IBS0)
-    with pytest.raises(NotImplementedError):
-        tsr.ibd_king(tdata, type="KING-homo", device="cpu")
+    want = jsr.ibd_king(jdata, type="KING-homo", **KW)
+    got = tsr.ibd_king(tdata, type="KING-homo", device="cpu", **KW)
+    np.testing.assert_array_equal(np.isnan(got.k0), np.isnan(want.k0))
+    _close(got.k0, want.k0)
+    _close(got.k1, want.k1)
+    with pytest.raises(ValueError, match="type"):
+        tsr.ibd_king(tdata, type="KING-fast", device="cpu", **KW)
 
 
 @pytest.mark.parametrize("method", ["GCTA", "Eigenstrat", "Corr"])
@@ -90,7 +95,14 @@ def test_public_functions_default_to_the_card():
     _, tdata = datasets(5, n_snp=40)
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default runs there")
-    for fn in (tsr.ibs, tsr.ibs_num, tsr.ibd_king, tsr.grm, tsr.pca):
+    for fn in (tsr.ibs, tsr.ibs_num, tsr.ibd_king, tsr.grm, tsr.pca,
+               tsr.diss, tsr.eigmix, tsr.ibd_mom, tsr.indiv_beta):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(tdata, missing_rate=float("nan"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsr.pca(tdata, algorithm="randomized", eigen_cnt=2, iter_num=1,
+                missing_rate=float("nan"))
     assert tsr.snpgdsIBDKING is tsr.ibd_king and tsr.snpgdsGRM is tsr.grm
+    assert (tsr.snpgdsEIGMIX, tsr.snpgdsDiss, tsr.snpgdsIBDMoM,
+            tsr.snpgdsIndivBeta, tsr.snpgdsIndivBetaRel) == (
+        tsr.eigmix, tsr.diss, tsr.ibd_mom, tsr.indiv_beta, tsr.indiv_beta_rel)
