@@ -2,7 +2,10 @@
 NVIDIA H100: relatedness and PCA from packed 2-bit genotypes on
 hand-written CUDA kernels: IBS, KING (robust and homo), dissimilarity,
 PLINK method-of-moments IBD, individual beta, GRM (GCTA, Eigenstrat, Corr,
-EIGMIX, IndivBeta), EIGMIX, and exact and randomized PCA.
+EIGMIX, IndivBeta), EIGMIX, exact and randomized PCA, and the streaming
+KING-robust relatedness screen (``king_ibd_selection``). The count and GRM
+analyses take ``sample_block=`` for the row-strip route, which keeps
+device memory O(block x N).
 
 Public functions mirror the JAX package's names and ``snpgds*`` aliases
 and take ``device=``: ``None`` means the CUDA card and raises when there is
@@ -14,7 +17,7 @@ from .io.store import (SNPData, create_geno, open_packed_store,
 from .workspace import Workspace, init_workspace, snp_stats
 from .utils.packed import PackedSymmetric
 from .models.ibs import ibs, ibs_num
-from .models.king import ibd_king
+from .models.king import ibd_king, king_ibd_selection
 from .models.grm import grm
 from .models.pca import pca
 from .models.eigmix import eigmix

@@ -1,26 +1,36 @@
-// K1 gram4: fused 2-bit decode + reduced-basis count grams.
+// K1 gram4: fused 2-bit decode + reduced-basis count grams, and its strip
+// mode K1r gram5_rows.
 //
-// Replaces snprelate_tpu/ops/pairwise.py:_gram4_step (decode2bit ->
+// K1 replaces snprelate_tpu/ops/pairwise.py:_gram4_step (decode2bit ->
 // genotype_basis -> _sym_grams4). For one packed SNP chunk, (S, N/4) bytes
 // with the first sample in the low bits and 0xFF padding (= missing), it
 // adds V'V, H'H, D'D and H'V into an int32 (4, N, N) carry, where
 // V = [g != 3], H = [g == 1] and D = [g == 2] - [g == 0].
 //
-// What bounds it on the card: int8 tensor-core operations, 2*S*N^2 for each
-// of the four grams, against S*N/4 bytes of input and 16*N^2 bytes of carry
+// K1r replaces _basis_rows_step / _basis_strip_update
+// (snprelate_tpu/ops/pairwise.py:1006, :1023): for the sample rows
+// [row0, row0 + R) it adds the five row-strip grams Vr'V, Hr'H, Dr'D, Hr'V
+// and Vr'H into an int32 (5, R, N) carry, over the columns [0, n_cols).
+// A strip is not square, so both het cross-grams are computed. The KING
+// screen passes n_cols = row0 + rows rounded up to 64: its triangle test
+// never reads a column at or past the row, so half the work is skipped.
+//
+// What bounds them on the card: int8 tensor-core operations, 2*S per
+// output entry and gram, against S*N/4 bytes of input and the int32 carry
 // read and written once per chunk.
 //
-// Design: one block owns one 64 x 64 output tile of all four grams and
+// Design: one block owns one 64 x 64 output tile of all its grams and
 // streams the chunk through shared memory in 128-SNP stages. A stage's
 // packed bytes are transposed into one code byte per genotype, sample-major
 // with the SNP axis contiguous, so every mma.sync fragment register is one
 // conflict-free 32-bit shared load. V, H and D are formed from the code
 // bytes in registers with a few bitwise operations, so the basis never
-// exists in memory, and all four grams come from the same fragments through
+// exists in memory, and all grams come from the same fragments through
 // mma.sync.m16n8k32 (s8 x s8 -> s32). The epilogue adds the tile into the
-// carry; each tile has one owner, so no atomics. The full square is
-// computed because H'V is not symmetric. Upper-triangle tiles for the three
-// symmetric grams, wgmma and TMA are later work.
+// carry; each tile has one owner, so no atomics. K1 computes the full
+// square because H'V is not symmetric; K1r is the same tile code on a
+// rectangle of tiles. Upper-triangle tiles for the three symmetric grams,
+// wgmma and TMA are later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -59,13 +69,14 @@ __device__ __forceinline__ uint32_t lds32(const uint8_t *p) {
   return *reinterpret_cast<const uint32_t *>(p);
 }
 
-__global__ void __launch_bounds__(THREADS)
-gram4_kernel(const uint8_t *__restrict__ packed, int S, int B,
-             int *__restrict__ carry) {
-  __shared__ __align__(16) uint8_t sm[2][TILE][LDS];  // [row|col side][sample][snp]
-
-  const long long N = 4LL * B;
-  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
+// The grams of one 64 x 64 tile (rows from sample i0, columns from j0)
+// over the whole chunk, into acc: V'V, H'H, D'D, H'V and, with NG == 5,
+// V'H. Called by all THREADS threads of the block.
+template <int NG>
+__device__ __forceinline__ void tile_grams(const uint8_t *__restrict__ packed,
+                                           int S, int B, int i0, int j0,
+                                           uint8_t (&sm)[2][TILE][LDS],
+                                           int (&acc)[NG][2][2][4]) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp >> 2, wn = warp & 3;
@@ -77,9 +88,8 @@ gram4_kernel(const uint8_t *__restrict__ packed, int S, int B,
   const uint8_t *src = packed + ((side ? j0 : i0) >> 2) + 4 * wc;
   uint8_t *dst = &sm[side][16 * wc][4 * q];
 
-  int acc[4][2][2][4];  // [gram][m tile][n tile][fragment]
 #pragma unroll
-  for (int x = 0; x < 4; ++x)
+  for (int x = 0; x < NG; ++x)
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -132,31 +142,66 @@ gram4_kernel(const uint8_t *__restrict__ packed, int S, int B,
           mma_s8(acc[1][m][n], ah[m], bh[n]);  // H'H
           mma_s8(acc[2][m][n], ad[m], bd[n]);  // D'D
           mma_s8(acc[3][m][n], ah[m], bv[n]);  // H'V
+          if constexpr (NG == 5) mma_s8(acc[4][m][n], av[m], bh[n]);  // V'H
         }
     }
   }
+}
 
-  // Epilogue: carry += tile (in place). Fragment f sits at row g (+8 for
-  // f >= 2) and column 2t + (f & 1) of its 16 x 8 mma tile.
+// Epilogue: gram x of the tile += acc[x] in place, the tile's first row at
+// row r0 of a carry whose grams are `plane` entries apart with row stride
+// ld. Fragment f sits at row g (+8 for f >= 2) and column 2t + (f & 1) of
+// its 16 x 8 mma tile.
+template <int NG>
+__device__ __forceinline__ void add_tile(int *__restrict__ carry,
+                                         long long plane, long long ld,
+                                         long long r0, long long c0,
+                                         const int (&acc)[NG][2][2][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
 #pragma unroll
-  for (int x = 0; x < 4; ++x)
+  for (int x = 0; x < NG; ++x)
 #pragma unroll
     for (int m = 0; m < 2; ++m)
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
-        const long long r = i0 + wm * 32 + m * 16 + g;
-        const long long c = j0 + wn * 16 + n * 8 + 2 * t;
-        int2 *p = reinterpret_cast<int2 *>(carry + x * N * N + r * N + c);
+        const long long r = r0 + wm * 32 + m * 16 + g;
+        const long long c = c0 + wn * 16 + n * 8 + 2 * t;
+        int2 *p = reinterpret_cast<int2 *>(carry + x * plane + r * ld + c);
         int2 v = p[0];
         v.x += acc[x][m][n][0];
         v.y += acc[x][m][n][1];
         p[0] = v;
-        int2 *p8 = reinterpret_cast<int2 *>(carry + x * N * N + (r + 8) * N + c);
+        int2 *p8 = reinterpret_cast<int2 *>(carry + x * plane + (r + 8) * ld + c);
         v = p8[0];
         v.x += acc[x][m][n][2];
         v.y += acc[x][m][n][3];
         p8[0] = v;
       }
+}
+
+__global__ void __launch_bounds__(THREADS)
+gram4_kernel(const uint8_t *__restrict__ packed, int S, int B,
+             int *__restrict__ carry) {
+  __shared__ __align__(16) uint8_t sm[2][TILE][LDS];  // [row|col side][sample][snp]
+  const long long N = 4LL * B;
+  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
+  int acc[4][2][2][4];  // [gram][m tile][n tile][fragment]
+  tile_grams<4>(packed, S, B, i0, j0, sm, acc);
+  add_tile<4>(carry, N * N, N, i0, j0, acc);
+}
+
+// The strip: block (x, y) owns rows row0 + 64y and columns 64x.
+__global__ void __launch_bounds__(THREADS)
+gram5_rows_kernel(const uint8_t *__restrict__ packed, int S, int B, int row0,
+                  int rows, int *__restrict__ carry) {
+  __shared__ __align__(16) uint8_t sm[2][TILE][LDS];
+  const long long N = 4LL * B;
+  const int r0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
+  int acc[5][2][2][4];
+  tile_grams<5>(packed, S, B, row0 + r0, j0, sm, acc);
+  add_tile<5>(carry, (long long)rows * N, N, r0, j0, acc);
 }
 
 }  // namespace
@@ -169,5 +214,20 @@ extern "C" int gram4_launch(const void *packed, int S, int B, void *carry,
   gram4_kernel<<<dim3(tiles, tiles), THREADS, 0,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t *>(packed), S, B, static_cast<int *>(carry));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// packed: (S, B) uint8, B % 16 == 0; carry: (5, rows, 4B) int32, updated in
+// place over its columns [0, n_cols); row0, rows and n_cols multiples of
+// 64 with row0 + rows <= 4B and n_cols <= 4B. Launches on `stream`;
+// returns cudaGetLastError().
+extern "C" int gram5_rows_launch(const void *packed, int S, int B, int row0,
+                                 int rows, int n_cols, void *carry,
+                                 void *stream) {
+  if (rows > 0 && n_cols > 0)
+    gram5_rows_kernel<<<dim3(n_cols / TILE, rows / TILE), THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t *>(packed), S, B, row0, rows,
+        static_cast<int *>(carry));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 // K2b norm_gram: fused 2-bit decode + normalization + covariance gram, with
-// the GCTA valid-and-polymorphic count gram on request.
+// the GCTA valid-and-polymorphic count gram on request; and its strip mode
+// norm_gram_rows.
 //
 // Replaces snprelate_tpu/ops/pairwise.py:_pca_step (make_pca_block ->
 // _sym_blocks) and _gcta_step, and the float grams of _king_homo_step and
@@ -12,6 +13,13 @@
 // grams of KING-homo and EIGMIX. With a count carry (GCTA) it also adds the
 // int32 gram of vp[s, i] = valid[s, i] and poly[s].
 //
+// The strip mode replaces _gcta_rows_step and _pca_rows_step
+// (snprelate_tpu/ops/pairwise.py:806, :821) and the float strips of
+// _king_homo_rows_step and _eigmix_rows_step (:1090, :1141): for the sample
+// rows [row0, row0 + R) it adds X_r'X into a float64 (R, N) carry (and the
+// count gram into an int32 (R, N) carry), every tile of the rectangle
+// computed, none mirrored.
+//
 // What bounds it on the card: float32 operations, S*N*(N+1) for the
 // symmetric gram (and as many again for the GCTA count gram), against
 // S*N/4 bytes of input and the carries read and written once per chunk.
@@ -19,7 +27,9 @@
 // Design: X'X and the count gram are symmetric, so only the tiles on and
 // above the diagonal are computed: one block owns one 64 x 64 upper output
 // tile, adds it into the carry at its place and, transposed, at its mirror
-// place below the diagonal; blocks of lower tiles return at once. A block
+// place below the diagonal; blocks of lower tiles return at once. In strip
+// mode a block owns one tile of the rectangle and adds it at its place. A
+// block
 // streams the chunk in 32-SNP stages. Each stage decodes its packed words
 // and normalizes in registers (x in double, rounded once to float), so the
 // normalized block
@@ -44,9 +54,12 @@ constexpr int TILE = 64;      // samples per output-tile side
 constexpr int BK = 32;        // SNPs per shared-memory stage
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
-template <bool GCTA>
+// ROWS: the strip mode, block (x, y) owning rows row0 + 64y of the packed
+// chunk and columns 64x, at row 64y of the carry; else the upper triangle
+// of the square (row0 = 0).
+template <bool GCTA, bool ROWS>
 __global__ void __launch_bounds__(THREADS)
-norm_gram_kernel(const uint8_t *__restrict__ packed, int S, int B,
+norm_gram_kernel(const uint8_t *__restrict__ packed, int S, int B, int row0,
                  const double *__restrict__ avg,
                  const double *__restrict__ scale,
                  const bool *__restrict__ poly, int indicator,
@@ -54,9 +67,11 @@ norm_gram_kernel(const uint8_t *__restrict__ packed, int S, int B,
   __shared__ __align__(16) float xs[2][BK][TILE];  // [row|col side][snp][sample]
   __shared__ __align__(16) float vs[GCTA ? 2 : 1][GCTA ? BK : 1][TILE];
 
-  if (blockIdx.x < blockIdx.y) return;  // a lower tile: written by its mirror
+  // a lower tile of the square: written by its mirror
+  if (!ROWS && blockIdx.x < blockIdx.y) return;
   const long long N = 4LL * B;
-  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
+  const int r0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
+  const int i0 = row0 + r0;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
   // Stage fill: thread -> (side, SNP sr, 16-sample word column wc).
@@ -136,14 +151,15 @@ norm_gram_kernel(const uint8_t *__restrict__ packed, int S, int B,
       for (int b = 0; b < 4; ++b) sum[a][b] += (double)acc[a][b];
   }
 
-  // Epilogue: carries += tile and, off the diagonal, their mirror tiles +=
-  // its transpose (in place); each pair of tiles has one owner.
-  const bool mirror = i0 != j0;
+  // Epilogue: carries += tile and, off the diagonal of the square, their
+  // mirror tiles += its transpose (in place); each pair of tiles has one
+  // owner.
+  const bool mirror = !ROWS && i0 != j0;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
-      const long long r = i0 + 4 * ty + a, c = j0 + 4 * tx + b;
+      const long long r = r0 + 4 * ty + a, c = j0 + 4 * tx + b;
       carry[r * N + c] += sum[a][b];
       if (mirror) carry[c * N + r] += sum[a][b];
       if constexpr (GCTA) {
@@ -152,6 +168,28 @@ norm_gram_kernel(const uint8_t *__restrict__ packed, int S, int B,
         if (mirror) vcarry[c * N + r] += v;
       }
     }
+}
+
+template <bool ROWS>
+int launch(const void *packed, int S, int B, int row0, int rows,
+           const void *avg, const void *scale, const void *poly,
+           int indicator, void *carry, void *vcarry, void *stream) {
+  const int tiles = 4 * B / TILE;
+  const dim3 grid(tiles, rows / TILE);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t *p = static_cast<const uint8_t *>(packed);
+  const double *a = static_cast<const double *>(avg);
+  const double *s = static_cast<const double *>(scale);
+  if (rows <= 0 || tiles <= 0) return static_cast<int>(cudaGetLastError());
+  if (vcarry)
+    norm_gram_kernel<true, ROWS><<<grid, THREADS, 0, st>>>(
+        p, S, B, row0, a, s, static_cast<const bool *>(poly), indicator,
+        static_cast<double *>(carry), static_cast<int *>(vcarry));
+  else
+    norm_gram_kernel<false, ROWS><<<grid, THREADS, 0, st>>>(
+        p, S, B, row0, a, s, nullptr, indicator,
+        static_cast<double *>(carry), nullptr);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -166,19 +204,18 @@ extern "C" int norm_gram_launch(const void *packed, int S, int B,
                                 const void *avg, const void *scale,
                                 const void *poly, int indicator, void *carry,
                                 void *vcarry, void *stream) {
-  const int tiles = 4 * B / TILE;
-  const dim3 grid(tiles, tiles);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t *p = static_cast<const uint8_t *>(packed);
-  const double *a = static_cast<const double *>(avg);
-  const double *s = static_cast<const double *>(scale);
-  if (vcarry)
-    norm_gram_kernel<true><<<grid, THREADS, 0, st>>>(
-        p, S, B, a, s, static_cast<const bool *>(poly), indicator,
-        static_cast<double *>(carry), static_cast<int *>(vcarry));
-  else
-    norm_gram_kernel<false><<<grid, THREADS, 0, st>>>(
-        p, S, B, a, s, nullptr, indicator, static_cast<double *>(carry),
-        nullptr);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(packed, S, B, 0, 4 * B, avg, scale, poly, indicator,
+                       carry, vcarry, stream);
+}
+
+// The strip mode: as norm_gram_launch, with carry (rows, 4B) float64 and
+// vcarry (rows, 4B) int32 (or null) holding the sample rows
+// [row0, row0 + rows); row0 and rows multiples of 64, row0 + rows <= 4B.
+extern "C" int norm_gram_rows_launch(const void *packed, int S, int B,
+                                     int row0, int rows, const void *avg,
+                                     const void *scale, const void *poly,
+                                     int indicator, void *carry, void *vcarry,
+                                     void *stream) {
+  return launch<true>(packed, S, B, row0, rows, avg, scale, poly, indicator,
+                      carry, vcarry, stream);
 }

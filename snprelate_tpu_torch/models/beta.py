@@ -48,17 +48,24 @@ def _beta_raw(c: PairCounts, inbreeding: bool):
 def indiv_beta(data, sample_id=None, snp_id=None, autosome_only=True,
                remove_monosnp=True, maf=math.nan, missing_rate=0.01,
                method="weighted", inbreeding=True, verbose=False,
-               chunk=None, use_matrix=False, checkpoint=None, with_id=True,
-               num_thread=None, device=None) -> IndivBetaResult:
+               chunk=None, sample_block=None, use_matrix=False, mesh=None,
+               tile_devices=None, tile_rank=None, checkpoint=None,
+               with_id=True, num_thread=None,
+               device=None) -> IndivBetaResult:
     """snpgdsIndivBeta (R/IBD.R:838). use_matrix packs the symmetric
     beta output (useMatrix=TRUE analog); with_id=False drops the id
-    vectors (with.id=FALSE). num_thread is accepted and ignored. device:
+    vectors (with.id=FALSE). sample_block takes the row-strip engine
+    (automatic past the JAX package's carry threshold); mesh=,
+    tile_devices= and tile_rank= name routes that are not ported and
+    raise NotImplementedError. num_thread is accepted and ignored. device:
     None = the CUDA card; "cpu" runs the plain versions."""
     if method != "weighted":
         raise ValueError("method must be 'weighted'")
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
     c = pair_counts(ws, chunk=chunk, verbose=verbose, checkpoint=checkpoint,
+                    sample_block=sample_block, mesh=mesh,
+                    tile_devices=tile_devices, tile_rank=tile_rank,
                     device=device)
     beta, avg = _beta_raw(c, inbreeding)
     out = (beta - avg) / (1.0 - avg)
@@ -83,13 +90,15 @@ def indiv_beta_rel(beta: IndivBetaResult, beta_rel: float, verbose=False):
                            maybe_packed(mat, packed), beta.avg_val)
 
 
-def beta_grm_matrix(ws, chunk=None, verbose=False, device=None):
+def beta_grm_matrix(ws, chunk=None, verbose=False, sample_block=None,
+                    device=None):
     """GRM method='IndivBeta' (CalcIndivBetaGRM, genBeta.cpp:263-357):
     min-rescaled beta matrix with diagonal mapped to (x-min)*scale/2 + 1.
     Returns (grm, avg_val): avg_val is the pre-transform upper-triangle
     average the reference stashes for snpgdsMergeGRM (grm_avg_value,
     genPCA.cpp:1605)."""
-    c = pair_counts(ws, chunk=chunk, verbose=verbose, device=device)
+    c = pair_counts(ws, chunk=chunk, verbose=verbose,
+                    sample_block=sample_block, device=device)
     beta, avg = _beta_raw(c, inbreeding=True)
     mn = float(np.min(beta))
     scale = 2.0 / (1.0 - mn)

@@ -28,15 +28,22 @@ class DissResult:
 
 def diss(data, sample_id=None, snp_id=None, autosome_only=True,
          remove_monosnp=True, maf=math.nan, missing_rate=0.01,
-         verbose=False, chunk=None, checkpoint=None, num_thread=None,
-         device=None) -> DissResult:
+         verbose=False, chunk=None, mesh=None, sample_block=None,
+         tile_devices=None, tile_rank=None, checkpoint=None,
+         num_thread=None, device=None) -> DissResult:
     """snpgdsDiss (R/IBD.R:432), on the KING-homo engine's counts and
-    weighted validity gram. num_thread is accepted and ignored. device:
+    weighted validity gram. sample_block takes the row-strip engine
+    (automatic past the JAX package's carry threshold); mesh=,
+    tile_devices= and tile_rank= name routes that are not ported and
+    raise NotImplementedError. num_thread is accepted and ignored. device:
     None = the CUDA card; "cpu" runs the plain versions."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
     c, waf, _ = king_homo_counts(ws, chunk=chunk, verbose=verbose,
-                                 checkpoint=checkpoint, device=device)
+                                 sample_block=sample_block, mesh=mesh,
+                                 tile_devices=tile_devices,
+                                 tile_rank=tile_rank, checkpoint=checkpoint,
+                                 device=device)
     # w(a,b) = a(2-b) + (2-a)b over the joint counts reduces to
     # 2*IBS1 + 4*IBS0 + 2*N11 (w is 2 on {01,10,11,12,21}, 4 on {02,20})
     sum_geno = (2 * (c.ibs1 + c.n11) + 4 * c.ibs0).astype(np.float64)

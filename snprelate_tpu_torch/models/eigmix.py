@@ -31,8 +31,13 @@ class EigMixResult:
 
 
 def eigmix_ibd_matrix(ws, diagadj: bool = True, chunk=None, verbose=False,
-                      checkpoint=None, device=None) -> np.ndarray:
+                      sample_block=None, mesh=None, tile_devices=None,
+                      tile_rank=None, checkpoint=None,
+                      device=None) -> np.ndarray:
     num, denom, het = eigmix_parts(ws, chunk=chunk, verbose=verbose,
+                                   sample_block=sample_block, mesh=mesh,
+                                   tile_devices=tile_devices,
+                                   tile_rank=tile_rank,
                                    checkpoint=checkpoint, device=device)
     if diagadj:
         num = num.copy()
@@ -44,9 +49,13 @@ def eigmix_ibd_matrix(ws, diagadj: bool = True, chunk=None, verbose=False,
 def eigmix(data, sample_id=None, snp_id=None, autosome_only=True,
            remove_monosnp=True, maf=math.nan, missing_rate=0.01,
            eigen_cnt=32, diagadj=True, ibdmat=False, verbose=False,
-           chunk=None, checkpoint=None, num_thread=None,
+           chunk=None, sample_block=None, mesh=None, tile_devices=None,
+           tile_rank=None, checkpoint=None, num_thread=None,
            device=None) -> EigMixResult:
-    """snpgdsEIGMIX (R/PCA.R:311). num_thread is accepted and ignored.
+    """snpgdsEIGMIX (R/PCA.R:311). sample_block takes the row-strip
+    engine (automatic past the JAX package's carry threshold); mesh=,
+    tile_devices= and tile_rank= name routes that are not ported and
+    raise NotImplementedError. num_thread is accepted and ignored.
     device: None = the CUDA card; "cpu" runs the plain versions."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
@@ -54,7 +63,9 @@ def eigmix(data, sample_id=None, snp_id=None, autosome_only=True,
     if eigen_cnt < 0:
         eigen_cnt = n
     mat = eigmix_ibd_matrix(ws, diagadj=diagadj, chunk=chunk,
-                            verbose=verbose, checkpoint=checkpoint,
+                            verbose=verbose, sample_block=sample_block,
+                            mesh=mesh, tile_devices=tile_devices,
+                            tile_rank=tile_rank, checkpoint=checkpoint,
                             device=device)
     af, _, _, _ = snp_stats(ws)
 

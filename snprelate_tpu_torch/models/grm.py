@@ -1,5 +1,6 @@
 """Genetic relationship matrices (reference: R/IBD.R:543-615 snpgdsGRM +
-src/genPCA.cpp:1614-1717 gnrGRM), full-square route.
+src/genPCA.cpp:1614-1717 gnrGRM), on the full-square or the row-strip
+route.
 
 Methods:
   GCTA       — normalized covariance with per-pair missing denominators
@@ -19,7 +20,12 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..ops.pairwise import gcta_grm_parts, pca_covariance
+from ..ops.pairwise import (TileCheckpointer, effective_sample_block,
+                            gcta_grm_parts, gcta_parts_rows, pca_cov_rows,
+                            pca_covariance, refuse_grid_checkpoint,
+                            refuse_routes, refuse_super_tiles,
+                            resolve_row_chunk)
+from ..utils.device import resolve_device
 from ..utils.packed import PackedSymmetric
 from ..workspace import init_workspace
 
@@ -42,46 +48,124 @@ def _gcta(ws, chunk, checkpoint, verbose, device):
         return cov / denom
 
 
+def _auto_row_tiling(n: int, method: str) -> bool:
+    """GCTA and Eigenstrat switch to the row-strip engine once the
+    device-resident n x n carries (~2.5 n^2 words) pass 6e9 bytes (the
+    JAX package's 16 GB threshold, models/grm.py:50)."""
+    return method in ("GCTA", "Eigenstrat") and 2.5 * 4 * float(n) * n > 6e9
+
+
+def _grm_rows(ws, method, sample_block, chunk, checkpoint, verbose, device):
+    """GCTA or Eigenstrat GRM from row strips; checkpoint= saves the
+    completed GRM rows after every strip (meta tag 41 or 42, with the
+    resolved chunk) and a rerun resumes at the first missing strip."""
+    n = ws.n_samp
+    mat = np.empty((n, n))
+    tag = 41 if method == "GCTA" else 42
+    sample_block = effective_sample_block(ws, sample_block, 128,
+                                          8 if method == "GCTA" else 4)
+    chunk = resolve_row_chunk(ws, sample_block, chunk, device)
+    tck = TileCheckpointer(checkpoint, meta=(tag, ws.n_snp, n,
+                                             int(sample_block), int(chunk)))
+    start_row = tck.load_rows(
+        lambda r0, arr: mat.__setitem__(slice(r0, r0 + arr.shape[0]), arr))
+    if method == "GCTA":
+        for r0, nr, cov, vgr, _nl in gcta_parts_rows(
+                ws, sample_block=sample_block, chunk=chunk,
+                start_row=start_row, verbose=verbose, device=device):
+            with np.errstate(divide="ignore", invalid="ignore"):
+                mat[r0:r0 + nr] = cov / (2.0 * vgr)
+            tck.save_tile(r0, mat[r0:r0 + nr])
+    else:
+        for r0, nr, cov in pca_cov_rows(ws, sample_block=sample_block,
+                                        chunk=chunk, start_row=start_row,
+                                        verbose=verbose, device=device):
+            mat[r0:r0 + nr] = cov
+            tck.save_tile(r0, mat[r0:r0 + nr])
+        mat *= (n - 1) / float(np.trace(mat))
+    return mat
+
+
 def grm(data, sample_id=None, snp_id=None, autosome_only=True,
         remove_monosnp=True, maf=math.nan, missing_rate=0.01,
-        method="GCTA", verbose=False, chunk=None, checkpoint=None,
-        use_matrix=False, with_id=True, num_thread=None,
-        device=None) -> GRMResult:
+        method="GCTA", mesh=None, verbose=False, chunk=None,
+        checkpoint=None, sample_block=None, use_matrix=False, tiles=None,
+        tile_group=None, tile_devices=None, tile_rank=None, with_id=True,
+        num_thread=None, device=None) -> GRMResult:
     """snpgdsGRM (R/IBD.R:543) for GCTA, Eigenstrat, Corr, EIGMIX
     (= Weighted) and IndivBeta. With checkpoint=path the GCTA/Eigenstrat
-    accumulators are saved every 64 chunks and a rerun resumes. num_thread
-    is accepted and ignored. device: None = the CUDA card; "cpu" runs the
-    plain versions."""
+    accumulators are saved every 64 chunks (full square) or every strip
+    (rows) and a rerun resumes. sample_block computes the GRM in row
+    strips of this many samples (device memory O(block x n); automatic for
+    GCTA/Eigenstrat past the JAX package's threshold). tiles=False names
+    the row-strip route; tiles=True (with sample_block, GCTA/Eigenstrat),
+    tile_devices=, tile_rank= and mesh= name routes that are not ported
+    and raise NotImplementedError, as does a GCTA/Eigenstrat row-strip
+    selection past the slab-staging budget, where the JAX package
+    switches to super tiles. tile_group is read only by that route.
+    num_thread is accepted and ignored. device: None = the CUDA card;
+    "cpu" runs the plain versions."""
     if method == "Weighted":
         # "Weighted GCTA" is the EIGMIX-based GRM (R/IBD.R:552-556)
         method = "EIGMIX"
     if method not in ("GCTA", "Eigenstrat", "Corr", "EIGMIX", "IndivBeta"):
         raise ValueError("Invalid 'method'!")
+    refuse_routes("grm", mesh, None, tile_devices, tile_rank)
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
     n = ws.n_samp
+    if sample_block is None and _auto_row_tiling(n, method):
+        sample_block = 4096
+    row_capable = method in ("GCTA", "Eigenstrat")
+    if tiles is None and row_capable:
+        refuse_grid_checkpoint("grm", ws, checkpoint,
+                               71 if method == "GCTA" else 72)
+    if sample_block is not None and row_capable:
+        if tiles:
+            refuse_routes("grm", tiles=True)
+        if tiles is not False:
+            refuse_super_tiles("grm", ws)
+    dev = resolve_device(device)
     avg_val = None
-    if method == "EIGMIX":
+    if sample_block is not None and row_capable:
+        mat = _grm_rows(ws, method, sample_block, chunk, checkpoint, verbose,
+                        dev)
+    elif method == "EIGMIX":
         from .eigmix import eigmix_ibd_matrix
         mat = 2.0 * eigmix_ibd_matrix(ws, chunk=chunk, verbose=verbose,
-                                      device=device)
+                                      sample_block=sample_block, device=dev)
     elif method == "IndivBeta":
         from .beta import beta_grm_matrix
         mat, avg_val = beta_grm_matrix(ws, chunk=chunk, verbose=verbose,
-                                       device=device)
+                                       sample_block=sample_block, device=dev)
     elif method == "Eigenstrat":
         mat = pca_covariance(ws, chunk=chunk, checkpoint=checkpoint,
-                             verbose=verbose, device=device)
+                             verbose=verbose, device=dev)
         mat *= (n - 1) / float(np.trace(mat))
+    elif method == "Corr" and sample_block is not None:
+        # large N: the GCTA row strips, then the rescale (genPCA.cpp:1658)
+        mat = _corr(grm(data, sample_id=sample_id, snp_id=snp_id,
+                        autosome_only=autosome_only,
+                        remove_monosnp=remove_monosnp, maf=maf,
+                        missing_rate=missing_rate, method="GCTA",
+                        verbose=verbose, chunk=chunk, checkpoint=checkpoint,
+                        sample_block=sample_block, tiles=tiles,
+                        device=dev).grm)
     else:
-        mat = _gcta(ws, chunk, checkpoint, verbose, device)
+        mat = _gcta(ws, chunk, checkpoint, verbose, dev)
         if method == "Corr":
-            d = np.sqrt(np.diag(mat).copy())
-            mat = mat / np.outer(d, d)
-            np.fill_diagonal(mat, 1.0)
+            mat = _corr(mat)
     res = GRMResult(ws.sample_id, ws.snp_id, method, mat, avg_val)
     if use_matrix:  # useMatrix=TRUE analog (R/IBD.R:546)
         res.grm = PackedSymmetric.from_full(res.grm)
     if not with_id:  # with.id=FALSE (R/IBD.R:543): drop the id vectors
         res.sample_id = res.snp_id = None
     return res
+
+
+def _corr(mat: np.ndarray) -> np.ndarray:
+    """GCTA GRM -> correlation: unit diagonal (genPCA.cpp:1658-1686)."""
+    d = np.sqrt(np.diag(mat).copy())
+    mat = mat / np.outer(d, d)
+    np.fill_diagonal(mat, 1.0)
+    return mat

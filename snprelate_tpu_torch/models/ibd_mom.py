@@ -119,10 +119,14 @@ def _est_plink_kinship(ibs0, ibs1, ibs2, e, constraint: bool):
 def ibd_mom(data, sample_id=None, snp_id=None, autosome_only=True,
             remove_monosnp=True, maf=math.nan, missing_rate=0.01,
             allele_freq=None, kinship=False, kinship_constraint=False,
-            verbose=False, chunk=None, use_matrix=False, checkpoint=None,
-            num_thread=None, device=None) -> IBDMoMResult:
+            verbose=False, chunk=None, use_matrix=False, mesh=None,
+            sample_block=None, tile_devices=None, tile_rank=None,
+            checkpoint=None, num_thread=None, device=None) -> IBDMoMResult:
     """snpgdsIBDMoM (R/IBD.R:22). use_matrix packs the symmetric outputs
-    (useMatrix=TRUE analog). num_thread is accepted and ignored. device:
+    (useMatrix=TRUE analog). sample_block takes the row-strip engine
+    (automatic past the JAX package's carry threshold); mesh=,
+    tile_devices= and tile_rank= name routes that are not ported and
+    raise NotImplementedError. num_thread is accepted and ignored. device:
     None = the CUDA card; "cpu" runs the plain versions."""
     ws, afreq_used = init_workspace(data, sample_id, snp_id, autosome_only,
                                     remove_monosnp, maf, missing_rate,
@@ -133,6 +137,8 @@ def ibd_mom(data, sample_id=None, snp_id=None, autosome_only=True,
     e, p_used = _epr_ibs_ibd(gsum, num, afreq_used,
                              correct=afreq_used is None)
     c = pair_counts(ws, chunk=chunk, verbose=verbose, checkpoint=checkpoint,
+                    sample_block=sample_block, mesh=mesh,
+                    tile_devices=tile_devices, tile_rank=tile_rank,
                     device=device)
     k0, k1 = _est_plink_kinship(c.ibs0, c.ibs1, c.ibs2, e, kinship_constraint)
     np.fill_diagonal(k0, 0.0)

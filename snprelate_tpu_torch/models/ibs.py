@@ -36,16 +36,22 @@ class IBSNumResult:
 def ibs(data, sample_id=None, snp_id=None, autosome_only=True,
         remove_monosnp=True, maf=math.nan, missing_rate=0.01,
         verbose=False, chunk=None, checkpoint=None, use_matrix=False,
+        mesh=None, sample_block=None, tile_devices=None, tile_rank=None,
         num_thread=None, device=None) -> IBSResult:
     """snpgdsIBS (R/IBS.R:22): average IBS
     (0.5*IBS1 + IBS2) / (IBS0+IBS1+IBS2) per pair (genIBS.cpp:470-475).
     use_matrix packs the symmetric output (useMatrix=TRUE analog).
-    num_thread is accepted and ignored. device: None = the CUDA card;
-    "cpu" runs the plain versions."""
+    sample_block takes the row-strip engine (automatic past the JAX
+    package's carry threshold); mesh=, tile_devices= and tile_rank= name
+    routes that are not ported and raise NotImplementedError. num_thread
+    is accepted and ignored. device: None = the CUDA card; "cpu" runs the
+    plain versions."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
     c = pair_counts(ws, chunk=chunk, checkpoint=checkpoint,
-                    verbose=verbose, device=device)
+                    verbose=verbose, sample_block=sample_block, mesh=mesh,
+                    tile_devices=tile_devices, tile_rank=tile_rank,
+                    device=device)
     total = c.nvalid.astype(np.float64)
     with np.errstate(invalid="ignore"):
         avg = (0.5 * c.ibs1 + c.ibs2) / total
@@ -54,11 +60,15 @@ def ibs(data, sample_id=None, snp_id=None, autosome_only=True,
 
 def ibs_num(data, sample_id=None, snp_id=None, autosome_only=True,
             remove_monosnp=True, maf=math.nan, missing_rate=0.01,
-            verbose=False, chunk=None, checkpoint=None, num_thread=None,
-            device=None) -> IBSNumResult:
-    """snpgdsIBSNum (R/IBS.R:50): raw IBS0/1/2 counts."""
+            verbose=False, chunk=None, checkpoint=None, mesh=None,
+            sample_block=None, tile_devices=None, tile_rank=None,
+            num_thread=None, device=None) -> IBSNumResult:
+    """snpgdsIBSNum (R/IBS.R:50): raw IBS0/1/2 counts. Route arguments as
+    :func:`ibs`."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
     c = pair_counts(ws, chunk=chunk, checkpoint=checkpoint,
-                    verbose=verbose, device=device)
+                    verbose=verbose, sample_block=sample_block, mesh=mesh,
+                    tile_devices=tile_devices, tile_rank=tile_rank,
+                    device=device)
     return IBSNumResult(ws.sample_id, ws.snp_id, c.ibs0, c.ibs1, c.ibs2)

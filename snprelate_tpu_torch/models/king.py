@@ -8,6 +8,11 @@ Both estimators post-process the fused pairwise counters:
 - KING-homo (genKING.cpp:529-531): theta = 0.5 - SumSq/(8*SumAFreq),
   k0 = IBS0/(2*SumAFreq2), k1 = 2 - 2*k0 - 4*theta, with
   SumAFreq(2) = AF-weighted validity grams accumulated per chunk.
+
+``king_ibd_selection`` screens a cohort for related pairs without the
+n x n matrix: row strips of the count grams (``gram5_rows``, K1r) and a
+screen that compacts each strip's candidates on the device
+(``king_screen``, K6), then the exact float64 filter on the host.
 """
 
 from __future__ import annotations
@@ -17,8 +22,12 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
-from ..ops.pairwise import king_homo_counts, pair_counts
+from ..ops.kernels import gram5_rows, king_screen
+from ..ops.pairwise import (_row_tile_setup, king_homo_counts, pair_counts,
+                            refuse_routes, refuse_super_tiles)
+from ..utils.device import resolve_device
 from ..utils.packed import maybe_packed
 from ..workspace import init_workspace
 
@@ -74,17 +83,24 @@ def _resolve_family(family_id, sample_id, ws) -> np.ndarray:
 def ibd_king(data, sample_id=None, snp_id=None, autosome_only=True,
              remove_monosnp=True, maf=math.nan, missing_rate=0.01,
              type="KING-robust", family_id=None, verbose=False, chunk=None,
-             use_matrix=False, checkpoint=None, num_thread=None,
-             device=None):
+             use_matrix=False, mesh=None, sample_block=None,
+             tile_devices=None, tile_rank=None, checkpoint=None,
+             num_thread=None, device=None):
     """snpgdsIBDKING (R/IBD.R:333), KING-robust or KING-homo. use_matrix
-    packs the symmetric outputs (useMatrix=TRUE analog). num_thread is
-    accepted and ignored. device: None = the CUDA card; "cpu" runs the
-    plain versions."""
+    packs the symmetric outputs (useMatrix=TRUE analog). sample_block
+    takes the row-strip engine (automatic past the JAX package's carry
+    thresholds). mesh=, tile_devices= and tile_rank= name routes that are
+    not ported and raise NotImplementedError. num_thread is accepted and
+    ignored. device: None = the CUDA card; "cpu" runs the plain
+    versions."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
 
     if type == "KING-homo":
         c, waf, waf2 = king_homo_counts(ws, chunk=chunk, verbose=verbose,
+                                        sample_block=sample_block, mesh=mesh,
+                                        tile_devices=tile_devices,
+                                        tile_rank=tile_rank,
                                         checkpoint=checkpoint, device=device)
         with np.errstate(divide="ignore", invalid="ignore"):
             theta = 0.5 - c.sum_sq / (8.0 * waf)
@@ -102,6 +118,8 @@ def ibd_king(data, sample_id=None, snp_id=None, autosome_only=True,
         raise ValueError("Invalid 'type'.")
     fam = _resolve_family(family_id, sample_id, ws)
     c = pair_counts(ws, chunk=chunk, verbose=verbose, checkpoint=checkpoint,
+                    sample_block=sample_block, mesh=mesh,
+                    tile_devices=tile_devices, tile_rank=tile_rank,
                     device=device)
     nloci = c.nvalid.astype(np.float64)
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -117,3 +135,106 @@ def ibd_king(data, sample_id=None, snp_id=None, autosome_only=True,
     return KINGRobustResult(ws.sample_id, ws.snp_id, None,
                             maybe_packed(ibs0, use_matrix),
                             maybe_packed(kinship, use_matrix))
+
+
+def king_screen_rows(chunks, n: int, n_pad: int, fam: np.ndarray,
+                     sample_block: int, kinship_cutoff: float, device,
+                     verbose: bool = False):
+    """The strip loop of ``king_ibd_selection``: for each strip of
+    ``sample_block`` sample rows, ``gram5_rows`` over the packed chunks
+    (``chunks()`` gives them anew for each strip: (S, n_pad/4) device
+    tensors, n_pad a multiple of sample_block), then ``king_screen``. Only
+    the columns before the strip's last row are computed: the screen's
+    triangle never reads the others. Yields (row0, hits), hits a (7, h)
+    int64 numpy array of the strip's candidates in row-major order: strip
+    row, column, ss, hv, vh, IBS0, vv."""
+    fam_pad = np.full(n_pad, -1, np.int32)
+    fam_pad[:n] = fam
+    fam_d = torch.from_numpy(fam_pad).to(device)
+    carry = torch.empty((5, sample_block, n_pad), dtype=torch.int32,
+                        device=device)
+    for r0 in range(0, n, sample_block):
+        nr = min(sample_block, n - r0)
+        carry.zero_()
+        n_cols = min(n_pad, -(-(r0 + nr) // 64) * 64)
+        for packed in chunks():
+            gram5_rows(packed, carry, r0, n_cols)
+        hits = king_screen(carry, fam_d, r0, nr, float(kinship_cutoff))
+        hits = hits.cpu().numpy().astype(np.int64)
+        if verbose:
+            print(f"KING screening rows {r0 + nr}/{n}: {hits.shape[1]} "
+                  "candidate pairs", flush=True)
+        yield r0, hits
+
+
+def select_pairs(sample_id, fam: np.ndarray, strips, kinship_cutoff: float):
+    """The exact float64 filter of the screen's candidates on the host,
+    from their integer counters, and the snpgdsIBDSelection-shaped dict
+    (ID1 < ID2 in selection order, strips in order, each row-major).
+    Same-family pairs take the within-family estimator
+    (genKING.cpp:634-638)."""
+    sid = np.asarray(sample_id, object)
+    id1, id2, ibs0_v, kin_v = [], [], [], []
+    for r0, h in strips:
+        if h.shape[1] == 0:
+            continue
+        ii, jj = h[0], h[1]
+        ss, hv_, vh_, ib0, nv = (h[k].astype(np.float64) for k in range(2, 7))
+        same = (fam[ii + r0] == fam[jj]) & (fam[jj] >= 0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            kin = np.where(same, 0.5 - ss / (2.0 * (hv_ + vh_)),
+                           0.5 - ss / (4.0 * np.minimum(hv_, vh_)))
+        keep = np.nan_to_num(kin, nan=-np.inf) >= kinship_cutoff
+        with np.errstate(divide="ignore", invalid="ignore"):
+            ibs0f = np.where(nv > 0, ib0 / nv, np.nan)
+        id1.append(sid[jj[keep]])
+        id2.append(sid[ii[keep] + r0])
+        kin_v.append(kin[keep])
+        ibs0_v.append(ibs0f[keep])
+    return {"ID1": np.concatenate(id1) if id1 else np.array([], object),
+            "ID2": np.concatenate(id2) if id2 else np.array([], object),
+            "IBS0": np.concatenate(ibs0_v) if ibs0_v else np.array([]),
+            "kinship": np.concatenate(kin_v) if kin_v else np.array([])}
+
+
+def king_ibd_selection(data, kinship_cutoff, sample_id=None, snp_id=None,
+                       autosome_only=True, remove_monosnp=True,
+                       maf=math.nan, missing_rate=0.01, family_id=None,
+                       sample_block=None, chunk=None, verbose=False,
+                       hit_cap: int = 65536, mesh=None, tiles=None,
+                       tile_group=None, tile_devices=None, tile_rank=None,
+                       device=None):
+    """Streaming KING-robust relatedness screening for cohorts whose n x n
+    kinship matrix fits nowhere: equal to selecting the pairs with
+    kinship >= kinship_cutoff from ibd_king(data, type="KING-robust",
+    family_id=...), but computed in sample-row strips with device memory
+    O(block x n) and host memory proportional to the related pairs only.
+    family_id selects the within-family estimator per same-family pair.
+    Returns {ID1, ID2, IBS0, kinship} like snpgdsIBDSelection
+    (R/IBD.R:463), in the JAX package's order.
+
+    hit_cap is accepted and cannot change the result: the screen compacts
+    each strip's candidates into a list of exactly their length on the
+    device (the JAX package's compact list and dense-bitmask fallback in
+    one kernel). tiles=False names this route; tiles=True, tile_devices=,
+    tile_rank= (the super-tile route, also taken by itself past the
+    slab-staging budget) and mesh= are not ported and raise
+    NotImplementedError. tile_group is read only by the super-tile route.
+    device: None = the CUDA card; "cpu" runs the plain versions."""
+    if not np.isfinite(kinship_cutoff):
+        raise ValueError("kinship_cutoff must be finite")
+    if tile_rank is not None and tiles is False:
+        raise ValueError("tile_rank= runs on the super-tile route; "
+                         "drop tiles=False (or the tile_rank=)")
+    refuse_routes("king_ibd_selection", mesh, tiles, tile_devices, tile_rank)
+    ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
+                           remove_monosnp, maf, missing_rate, verbose=verbose)
+    fam = _resolve_family(family_id, sample_id, ws)
+    if tiles is not False:
+        refuse_super_tiles("king_ibd_selection", ws)
+    dev = resolve_device(device)
+    sample_block, n_pad, chunk, chunks = _row_tile_setup(
+        ws, sample_block, chunk, 128, 20, dev)
+    strips = king_screen_rows(chunks, ws.n_samp, n_pad, fam, sample_block,
+                              kinship_cutoff, dev, verbose)
+    return select_pairs(ws.sample_id, fam, strips, kinship_cutoff)

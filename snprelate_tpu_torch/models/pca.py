@@ -16,7 +16,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..ops.pairwise import pca_covariance
+from ..ops.pairwise import pca_covariance, refuse_routes
 from ..workspace import init_workspace
 
 
@@ -43,14 +43,16 @@ def pca(data, sample_id=None, snp_id=None, autosome_only=True,
         remove_monosnp=True, maf=math.nan, missing_rate=0.01,
         algorithm="exact", eigen_cnt=32, bayesian=False, need_genmat=False,
         genmat_only=False, eigen_method="DSPEVX", aux_dim=None, iter_num=10,
-        seed=None, verbose=False, chunk=None, checkpoint=None,
+        seed=None, mesh=None, verbose=False, chunk=None, checkpoint=None,
         num_thread=None, device=None) -> PCAResult:
     """snpgdsPCA (R/PCA.R:22-91), exact or randomized algorithm.
     eigen_method "DSPEVX" (top eigen_cnt pairs) or "DSPEV" (all pairs) both
     map to the same descending eigh. aux_dim (default 2 eigen_cnt),
-    iter_num and seed drive the randomized algorithm. num_thread is
+    iter_num and seed drive the randomized algorithm. mesh= (the sharded
+    route) is not ported and raises NotImplementedError. num_thread is
     accepted and ignored. device: None = the CUDA card; "cpu" runs the
     plain versions."""
+    refuse_routes("pca", mesh)
     if eigen_method not in ("DSPEVX", "DSPEV"):
         raise ValueError("Invalid 'eigen.method'.")
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,

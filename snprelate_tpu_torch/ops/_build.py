@@ -1,6 +1,7 @@
 """Build the CUDA kernels of ``csrc/`` with nvcc and load them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C entry ``<name>_launch`` and compiles
+Each ``csrc/<name>.cu`` has a plain C entry ``<name>_launch`` (and may have
+more, ``<entry>_launch``, for the same kernel's other modes) and compiles
 on its own into ``_build/<name>-<digest>.so`` inside the package, at first
 use, for ``sm_90a`` (Hopper). The digest covers the source and the flags,
 so an edited kernel is rebuilt and a stale library is never loaded. Nothing
@@ -71,14 +72,16 @@ def build(names) -> dict:
     return logs
 
 
-def entry(name: str, argtypes):
-    """The loaded ``<name>_launch`` C function (built first if needed), with
-    its argument types set and an int (cudaError_t) result."""
+def entry(name: str, argtypes, source: str | None = None):
+    """The loaded ``<name>_launch`` C function of ``csrc/<source>.cu``
+    (``source`` defaults to ``name``; built first if needed), with its
+    argument types set and an int (cudaError_t) result."""
+    source = source or name
     with _lock:
         fn = _entries.get(name)
         if fn is None:
-            build([name])
-            fn = getattr(ctypes.CDLL(_library(name)[1]), name + "_launch")
+            build([source])
+            fn = getattr(ctypes.CDLL(_library(source)[1]), name + "_launch")
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
             _entries[name] = fn

@@ -18,20 +18,35 @@ kernels its path went through.
 - ``rand_yt``   (K3b) replaces pca_randomized.py:_g_step and _t_step
   (carry += Y' M)
 - ``het_count`` (K5) replaces the per-sample het count of _eigmix_step
+- ``gram5_rows`` (K1r, ``csrc/gram4.cu``) replaces _basis_rows_step /
+  _basis_strip_update: the five row-strip count grams
+- ``norm_gram_rows`` (K2b strip mode, ``csrc/norm_gram.cu``) replaces
+  _gcta_rows_step and _pca_rows_step, and the float strips of
+  _king_homo_rows_step and _eigmix_rows_step
+- ``king_screen`` (K6) replaces king.py's _strip_counters, strip_hits,
+  strip_mask and gather_hits: the KING-robust screen of one strip, its
+  hits compacted in row-major order
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
 from .decode import decode2bit, genotype_basis
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_F, _L = ctypes.c_float, ctypes.c_longlong
 _ARGTYPES = {
     "gram4": (_P, _I, _I, _P, _P),
+    "gram5_rows": (_P, _I, _I, _I, _I, _I, _P, _P),
+    "norm_gram_rows": (_P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P),
+    "king_screen_count": (_P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _P, _P),
+    "king_screen_write": (_P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _P, _P,
+                          _L, _P),
     "snp_stats": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "norm_gram": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P),
     "rand_h": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P),
@@ -40,8 +55,14 @@ _ARGTYPES = {
 }
 
 
+# the C entries that live in another kernel's source
+_ENTRY_SOURCE = {"gram5_rows": "gram4", "norm_gram_rows": "norm_gram",
+                 "king_screen_count": "king_screen",
+                 "king_screen_write": "king_screen"}
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
-    err = _build.entry(name, _ARGTYPES[name])(
+    err = _build.entry(name, _ARGTYPES[name], _ENTRY_SOURCE.get(name))(
         *args, torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -101,6 +122,59 @@ def gram4(packed: torch.Tensor, carry: torch.Tensor) -> None:
 
 
 gram4.launches = 0
+
+
+# ----------------------------------------------------------- K1r gram5_rows
+
+def _check_strip(packed, carry, planes: int, dtype, row0: int):
+    """(S, B, R) of a strip carry (planes, R, N) (or (R, N) with planes 0)
+    holding the sample rows [row0, row0 + R) of a packed (S, N/4) chunk,
+    after checking both."""
+    S, B = _check_packed(packed)
+    n = 4 * B
+    if carry.dim() != (3 if planes else 2):
+        raise ValueError(f"carry: expected a {'3' if planes else '2'}-d "
+                         "strip carry")
+    R = carry.shape[-2]
+    _check(carry, "carry", dtype, ((planes,) if planes else ()) + (R, n),
+           packed.device)
+    if row0 < 0 or row0 + R > n or row0 % 64 or R % 64:
+        raise ValueError(f"strip rows [{row0}, {row0 + R}) must be whole "
+                         f"64-sample tiles inside the {n} samples")
+    return S, B, R
+
+
+def gram5_rows_plain(packed: torch.Tensor, carry: torch.Tensor, row0: int,
+                     n_cols: int | None = None) -> None:
+    """Plain version of :func:`gram5_rows`: decode, basis, five grams."""
+    v, h, d = genotype_basis(decode2bit(packed))
+    R = carry.shape[1]
+    n_cols = carry.shape[2] if n_cols is None else n_cols
+    rows = slice(row0, row0 + R)
+    for k, (x, y) in enumerate(((v, v), (h, h), (d, d), (h, v), (v, h))):
+        carry[k, :, :n_cols] += _gram(x[:, rows], y[:, :n_cols]).to(
+            torch.int32)
+
+
+def gram5_rows(packed: torch.Tensor, carry: torch.Tensor, row0: int,
+               n_cols: int | None = None) -> None:
+    """carry (5, R, N) int32 += Vr'V, Hr'H, Dr'D, Hr'V, Vr'H of one packed
+    (S, N/4) chunk, Vr the basis of the sample rows [row0, row0 + R),
+    updated in place over the columns [0, n_cols) (default N; the others
+    are left as they are). row0, R and n_cols are multiples of 64."""
+    S, B, R = _check_strip(packed, carry, 5, torch.int32, row0)
+    n_cols = 4 * B if n_cols is None else int(n_cols)
+    if n_cols < 0 or n_cols > 4 * B or n_cols % 64:
+        raise ValueError(f"n_cols {n_cols}: a multiple of 64, at most "
+                         f"{4 * B}")
+    if not packed.is_cuda:
+        return gram5_rows_plain(packed, carry, row0, n_cols)
+    _launch("gram5_rows", packed.device, packed.data_ptr(), S, B, row0, R,
+            n_cols, carry.data_ptr())
+    gram5_rows.launches += 1
+
+
+gram5_rows.launches = 0
 
 
 # ------------------------------------------------------------ K2a snp_stats
@@ -205,15 +279,20 @@ def normalize(geno: torch.Tensor, valid: torch.Tensor, avg: torch.Tensor,
     return (torch.where(valid, geno.double(), a) - a) * scale[:, None]
 
 
-def norm_gram_plain(packed, avg, scale, carry, poly=None, vcarry=None,
-                    indicator=False):
-    """Plain version of :func:`norm_gram`, in float64."""
+def _norm_block(packed, avg, scale, indicator):
+    """(x, valid): the chunk's float64 block as :func:`norm_gram` forms it
+    (normalized, or scale on valid calls in indicator mode)."""
     geno = decode2bit(packed)
     valid = geno < 3
     if indicator:
-        x = torch.where(valid, scale[:, None], 0.0)
-    else:
-        x = normalize(geno, valid, avg, scale)
+        return torch.where(valid, scale[:, None], 0.0), valid
+    return normalize(geno, valid, avg, scale), valid
+
+
+def norm_gram_plain(packed, avg, scale, carry, poly=None, vcarry=None,
+                    indicator=False):
+    """Plain version of :func:`norm_gram`, in float64."""
+    x, valid = _norm_block(packed, avg, scale, indicator)
     carry += x.T @ x
     if vcarry is not None:
         vp = valid & poly[:, None]
@@ -257,6 +336,55 @@ def norm_gram(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
 
 
 norm_gram.launches = 0
+
+
+def norm_gram_rows_plain(packed, avg, scale, carry, row0, poly=None,
+                         vcarry=None, indicator=False):
+    """Plain version of :func:`norm_gram_rows`, in float64."""
+    x, valid = _norm_block(packed, avg, scale, indicator)
+    rows = slice(row0, row0 + carry.shape[0])
+    carry += x[:, rows].T @ x
+    if vcarry is not None:
+        vp = valid & poly[:, None]
+        vcarry += _gram(vp[:, rows], vp).to(torch.int32)
+
+
+def norm_gram_rows(packed: torch.Tensor, avg: torch.Tensor,
+                   scale: torch.Tensor, carry: torch.Tensor, row0: int,
+                   poly: torch.Tensor | None = None,
+                   vcarry: torch.Tensor | None = None,
+                   indicator: bool = False) -> None:
+    """The strip mode of :func:`norm_gram`: carry (R, N) float64 += X_r'X,
+    X_r the block's sample rows [row0, row0 + R), updated in place; with
+    vcarry (R, N) int32 also the strip of the count gram. row0 and R are
+    multiples of 64. Arguments as :func:`norm_gram`."""
+    S, B, R = _check_strip(packed, carry, 0, torch.float64, row0)
+    dev = packed.device
+    _check(avg, "avg", torch.float64, (S,), dev)
+    _check(scale, "scale", torch.float64, (S,), dev)
+    if vcarry is not None:
+        if poly is None:
+            raise ValueError("norm_gram_rows: a count carry needs poly")
+        if indicator:
+            raise ValueError("norm_gram_rows: no count carry in indicator "
+                             "mode")
+        _check(poly, "poly", torch.bool, (S,), dev)
+        _check(vcarry, "vcarry", torch.int32, (R, 4 * B), dev)
+    if not packed.is_cuda:
+        return norm_gram_rows_plain(packed, avg, scale, carry, row0, poly,
+                                    vcarry, indicator)
+    if S >= 1 << 24:
+        raise ValueError("norm_gram_rows: chunks must be shorter than 2^24 "
+                         "SNPs (exact float32 counts)")
+    gcta = vcarry is not None
+    _launch("norm_gram_rows", dev, packed.data_ptr(), S, B, row0, R,
+            avg.data_ptr(), scale.data_ptr(),
+            poly.data_ptr() if gcta else None, int(bool(indicator)),
+            carry.data_ptr(), vcarry.data_ptr() if gcta else None)
+    norm_gram_rows.launches += 1
+
+
+norm_gram_rows.launches = 0
 
 
 # --------------------------------------------------- K3a rand_h, K3b rand_yt
@@ -363,6 +491,89 @@ def het_count(packed: torch.Tensor, carry: torch.Tensor) -> None:
 
 het_count.launches = 0
 
+
+# ---------------------------------------------------------- K6 king_screen
+
+def _screen_thresholds(cutoff: float):
+    """float32 (thr, slack) between families and within one for a
+    kinship cutoff c: kin >= c <=> ss <= (2 - 4c) min(hv, vh) between
+    (genKING.cpp:637), ss <= (1 - 2c)(hv + vh) within (genKING.cpp:635);
+    slack 4e-6 |thr| widens the float32 test so that rounding only admits
+    (the JAX package's pre-test)."""
+    thr_b, thr_w = 2.0 - 4.0 * cutoff, 1.0 - 2.0 * cutoff
+    return tuple(np.float32(x) for x in (thr_b, 4e-6 * abs(thr_b), thr_w,
+                                         4e-6 * abs(thr_w)))
+
+
+def king_screen_plain(carry: torch.Tensor, fam: torch.Tensor, row0: int,
+                      nrows: int, cutoff: float) -> torch.Tensor:
+    """Plain version of :func:`king_screen`: integer torch code on the
+    whole strip, the same float32 pre-test, ``nonzero`` (row-major)."""
+    cols = row0 + nrows  # the strict lower triangle ends before the row
+    vv, hh, dd, hv, vh = carry[:, :nrows, :cols].unbind(0)
+    homo = vv + hh - hv - vh
+    ibs0 = (homo - dd) // 2  # even and >= 0: exact
+    ibs2 = (homo + dd) // 2 + hh
+    ss = vv - ibs2 + 3 * ibs0  # IBS1 + 4 IBS0, IBS1 = vv - IBS0 - IBS2
+    del homo, ibs2
+    famr = fam[row0:row0 + nrows, None]
+    same = (famr == fam[None, :cols]) & (famr >= 0)
+    m = torch.where(same, hv + vh, torch.minimum(hv, vh))
+    tb, sb, tw, sw = (torch.tensor(x, device=carry.device)
+                      for x in _screen_thresholds(cutoff))
+    mf = m.float()
+    bound = torch.where(same, tw, tb) * mf + torch.where(same, sw, sb) * mf
+    bound += 1.0
+    del same, mf
+    tri = (row0 + torch.arange(nrows, device=carry.device))[:, None] \
+        > torch.arange(cols, device=carry.device)[None, :]
+    hit = tri & (m > 0) & (ss.float() <= bound)
+    del tri, m, bound
+    ii, jj = hit.nonzero(as_tuple=True)
+    return torch.stack([ii.to(torch.int32), jj.to(torch.int32)]
+                       + [c[ii, jj] for c in (ss, hv, vh, ibs0, vv)])
+
+
+def king_screen(carry: torch.Tensor, fam: torch.Tensor, row0: int,
+                nrows: int, cutoff: float) -> torch.Tensor:
+    """The KING-robust screen of one row strip: carry (5, R, N) int32,
+    the strip grams (vv, hh, dd, hv, vh) of the sample rows
+    [row0, row0 + R) (:func:`gram5_rows`), fam (N,) int32 family codes (-1:
+    none). Tests every pair (row0 + r, j), r < nrows, j < row0 + r, with
+    the admit-only float32 pre-test of kinship >= cutoff, and returns the
+    hits as (7, hits) int32, in row-major order: strip row r, column j,
+    then the pair's ss = IBS1 + 4 IBS0, hv, vh, IBS0 and vv."""
+    if carry.dim() != 3 or carry.shape[0] != 5:
+        raise ValueError("carry: expected the (5, R, N) strip grams")
+    _, R, n = carry.shape
+    dev = carry.device
+    _check(carry, "carry", torch.int32, (5, R, n), dev)
+    _check(fam, "fam", torch.int32, (n,), dev)
+    if not (0 <= nrows <= R and row0 >= 0 and row0 + R <= n):
+        raise ValueError(f"strip rows [{row0}, {row0 + nrows}) do not fit "
+                         f"a ({R}, {n}) strip")
+    if not carry.is_cuda:
+        return king_screen_plain(carry, fam, row0, nrows, cutoff)
+    thr = [float(x) for x in _screen_thresholds(cutoff)]
+    counts = torch.empty(nrows, dtype=torch.int32, device=dev)
+    args = (carry.data_ptr(), R, n, fam.data_ptr(), row0, nrows, *thr)
+    _launch("king_screen_count", dev, *args, counts.data_ptr())
+    offsets = torch.zeros(nrows + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(counts, 0, dtype=torch.int64)  # the scan
+    total = int(offsets[-1])
+    out = torch.empty((7, total), dtype=torch.int32, device=dev)
+    _launch("king_screen_write", dev, *args, offsets.data_ptr(),
+            out.data_ptr(), total)
+    king_screen.launches += 1
+    return out
+
+
+king_screen.launches = 0
+
 # the wrappers by kernel name, for code that resets or reads the counts
 KERNELS = {"gram4": gram4, "snp_stats": snp_stats, "norm_gram": norm_gram,
-           "rand_h": rand_h, "rand_yt": rand_yt, "het_count": het_count}
+           "rand_h": rand_h, "rand_yt": rand_yt, "het_count": het_count,
+           "gram5_rows": gram5_rows, "norm_gram_rows": norm_gram_rows,
+           "king_screen": king_screen}
+# the source (csrc/<source>.cu) of each kernel
+SOURCES = {name: _ENTRY_SOURCE.get(name, name) for name in KERNELS}

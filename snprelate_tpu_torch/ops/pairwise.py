@@ -22,9 +22,18 @@ The engines stream packed 2-bit SNP chunks through the kernels of
    (CEigMix_AlgArith::Run, genEIGMIX.cpp:43-157), plus EIGMIX's
    per-sample het count (``het_count``, K5).
 
-All take the full-square route: the (N, N) carries live on the device.
-Checkpoints use the JAX package's npz layout and meta tuples, so either
-package resumes the other's run.
+Each takes the full-square route, where the (N, N) carries live on the
+device, or, past the JAX package's automatic thresholds or with
+``sample_block=``, the row-strip route (``basis_gram_rows``,
+``gcta_parts_rows``, ``pca_cov_rows``, ``king_homo_rows``,
+``eigmix_rows``): (B, N) strip carries, the chunks staged on the device
+once when they fit (``_stage_or_stream``) and re-streamed once per strip
+(``gram5_rows``, K1r, and ``norm_gram_rows``, K2b's strip mode). The
+super-tile and mesh routes are not ported: a call that would take one
+raises ``NotImplementedError`` (``refuse_routes``). Checkpoints use the
+JAX package's layouts and meta tuples (npz per chunk on the full square,
+one .npy per strip on the rows), so either package resumes the other's
+run.
 """
 
 from __future__ import annotations
@@ -36,12 +45,75 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .kernels import (chunk_snp_stats, gram4, het_count, norm_gram,
-                      normalize, pca_scale, snp_stats)
+from .kernels import (chunk_snp_stats, gram4, gram5_rows, het_count,
+                      norm_gram, norm_gram_rows, normalize, pca_scale,
+                      snp_stats)
 
 # int32 ceiling: every pairwise counter grows by at most 1 per SNP, so an
 # int32 carry is exact up to 2^31 - 1 accumulated SNPs.
 INT32_COUNT_CEILING = 2**31 - 1
+
+# Packed bytes of a selection that the row-strip engines stage on the
+# device at once (the JAX package's HBM slab-staging budget); past it the
+# JAX package takes its super-tile route instead, which is not ported.
+SLAB_STAGING_BUDGET = 2_000_000_000
+
+
+def refuse_routes(what: str, mesh=None, tiles=None, tile_devices=None,
+                  tile_rank=None) -> None:
+    """Raise NotImplementedError for a route argument that selects a
+    route the port does not have: mesh= (the sharded routes, ROADMAP item
+    12), tiles=True, tile_devices= and tile_rank= (the super-tile routes,
+    item 7). tiles=False names the row-strip route and is accepted."""
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what}: mesh= (the sharded routes) is not ported yet "
+            "(ROADMAP section 1 item 12)")
+    if tiles or tile_devices is not None or tile_rank is not None:
+        raise NotImplementedError(
+            f"{what}: the super-tile route (tiles=True, tile_devices=, "
+            "tile_rank=) is not ported yet (ROADMAP section 1 item 7)")
+
+
+def refuse_super_tiles(what: str, ws) -> None:
+    """Raise NotImplementedError where the JAX package's automatic switch
+    takes its super-tile route (a row-strip selection past
+    ``SLAB_STAGING_BUDGET``, pairwise.py:478; ROADMAP item 7)."""
+    if ws.n_snp * (-(-ws.n_samp // 4)) > SLAB_STAGING_BUDGET:
+        raise NotImplementedError(
+            f"{what}: {ws.n_snp} SNPs x {ws.n_samp} samples exceed the "
+            f"{SLAB_STAGING_BUDGET}-byte slab-staging budget, where the JAX "
+            "package switches to its super-tile route, which is not ported "
+            "yet (ROADMAP section 1 item 7)")
+
+
+def refuse_grid_checkpoint(what: str, ws, checkpoint, tag: int) -> None:
+    """Raise NotImplementedError for a super-tile grid checkpoint (meta
+    ``tag``), which the JAX package assembles or resumes on its super-tile
+    route (ROADMAP item 7)."""
+    if checkpoint and probe_grid_meta(checkpoint, tag, ws.n_snp,
+                                      ws.n_samp) is not None:
+        raise NotImplementedError(
+            f"{what}: {checkpoint} is a super-tile grid checkpoint; "
+            "assembling it needs the super-tile route, which is not ported "
+            "yet (ROADMAP section 1 item 7)")
+
+
+def probe_grid_meta(checkpoint, tag: int, n_snp: int, n_samp: int):
+    """(group, chunk) of an existing super-tile grid checkpoint meta
+    matching (tag, n_snp, n_samp), else None (the JAX package's
+    ops/tiles.py:probe_grid_meta)."""
+    mfn = str(checkpoint) + ".meta.npy"
+    if not os.path.exists(mfn):
+        return None
+    try:
+        m = np.load(mfn)
+    except (OSError, ValueError):
+        return None
+    if m.size >= 5 and int(m[0]) == tag and int(m[1]) == int(n_snp) \
+            and int(m[2]) == int(n_samp):
+        return int(m[3]), int(m[4])
+    return None
 
 
 def _count_ceiling() -> int:
@@ -245,6 +317,12 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of a (view of a) carry that the engine reuses: on the
+    CPU ``_host`` would share its memory."""
+    return t.cpu().numpy() if t.is_cuda else t.numpy().copy()
+
+
 def _stream(ws, chunk, n_pad, device, start_chunk: int = 0, verbose=False,
             label: str = ""):
     """Prefetched device chunks with optional progress lines."""
@@ -262,14 +340,41 @@ def _stream(ws, chunk, n_pad, device, start_chunk: int = 0, verbose=False,
 
 def pair_counts(ws, chunk=None, pad_to: int = 128, checkpoint=None,
                 checkpoint_every: int = 64, verbose: bool = False,
-                device=None) -> PairCounts:
-    """Run the integer pairwise engine (``gram4``) over a Workspace
-    selection, full-square route. checkpoint=path saves the carries every
-    ``checkpoint_every`` chunks and a rerun resumes."""
+                sample_block=None, mesh=None, tile_devices=None,
+                tile_rank=None, device=None) -> PairCounts:
+    """Run the integer pairwise engine over a Workspace selection.
+    checkpoint=path saves the carries every ``checkpoint_every`` chunks
+    (full square) or every strip (rows) and a rerun resumes. Past
+    16 n_pad^2 > 6e9 bytes of carries (the JAX package's threshold), or
+    with sample_block=, it assembles the counts from row strips
+    (``basis_gram_rows``)."""
+    refuse_routes("pair_counts", mesh, None, tile_devices, tile_rank)
+    refuse_grid_checkpoint("pair_counts", ws, checkpoint, 75)
     dev = resolve_device(device)
     n_pad = -(-ws.n_samp // pad_to) * pad_to
+    if sample_block is None and 16.0 * n_pad * n_pad > 6e9:
+        sample_block = 4096
+    if sample_block:
+        refuse_super_tiles("pair_counts", ws)
     if chunk is None:
         chunk = auto_chunk(ws.n_snp, dev)
+    if sample_block:
+        n = ws.n_samp
+        sample_block = effective_sample_block(ws, sample_block, pad_to, 20)
+        B = np.empty((5, n, n), np.int64)
+        tck = TileCheckpointer(checkpoint, meta=(62, ws.n_snp, n,
+                                                 int(sample_block)),
+                               rows_axis=1)
+        start_row = tck.load_rows(
+            lambda r0, arr: B.__setitem__(
+                (slice(None), slice(r0, r0 + arr.shape[1])), arr))
+        for r0, nr, strip in basis_gram_rows(ws, sample_block=sample_block,
+                                             chunk=chunk, pad_to=pad_to,
+                                             start_row=start_row,
+                                             verbose=verbose, device=dev):
+            B[:, r0:r0 + nr, :] = strip
+            tck.save_tile(r0, strip)
+        return PairCounts(*B)
     ck = Checkpointer(checkpoint, checkpoint_every,
                       meta=(62, ws.n_snp, ws.n_samp, chunk))
     step, saved = ck.load()
@@ -365,6 +470,259 @@ def gcta_grm_parts(ws, chunk=None, pad_to: int = 128,
             int(nlocus.item()))
 
 
+# ---------------------------------------------------------------------------
+# Row-strip engines: sample rows [r0, r0 + B) x all samples with device
+# memory O(B * N) instead of O(N^2), the analog of the reference's streamed
+# GRM rows (grm_save_to_gds, genPCA.cpp:1571-1583). Each strip re-streams
+# the SNP chunks, staged once on the device when they fit.
+
+
+def _stage_or_stream(ws, chunk, n_pad, device):
+    """Returns a callable giving the device packed chunks: all staged on
+    the device when the selection's packed bytes are at most
+    ``SLAB_STAGING_BUDGET`` (so strips do not re-read and re-send them),
+    else streamed anew on each call."""
+    if ws.n_snp * (n_pad // 4) <= SLAB_STAGING_BUDGET:
+        staged = list(_stream(ws, chunk, n_pad, device))
+        return lambda: staged
+    return lambda: _stream(ws, chunk, n_pad, device)
+
+
+class TileCheckpointer:
+    """Per-strip checkpoints of the row-strip engines: one .npy per
+    completed strip (``<path>.tileNNNNNNNNNN.npy``, NNNNNNNNNN its first
+    row) plus a meta sidecar (``<path>.meta.npy``), the JAX package's
+    layout. Resume loads the contiguous completed prefix of strips; a
+    differing meta (another run configuration) discards the strips."""
+
+    def __init__(self, path, meta: tuple = (), rows_axis: int = 0):
+        self.path = path
+        self.meta = np.asarray(meta, np.int64)
+        self.rows_axis = rows_axis
+        if path:
+            mfn = path + ".meta.npy"
+            if os.path.exists(mfn) and not np.array_equal(np.load(mfn),
+                                                          self.meta):
+                for fn in self._tiles():
+                    os.remove(fn)
+                os.remove(mfn)
+            if not os.path.exists(mfn):
+                self._atomic_save(mfn, self.meta)
+
+    @staticmethod
+    def _atomic_save(fn: str, arr) -> None:
+        tmp = fn + ".tmp"
+        with open(tmp, "wb") as f:
+            np.save(f, np.asarray(arr))
+        os.replace(tmp, fn)
+
+    def _tile_fn(self, r0: int) -> str:
+        return f"{self.path}.tile{r0:010d}.npy"
+
+    def _tiles(self):
+        import glob
+
+        return sorted(glob.glob(glob.escape(self.path) + ".tile*.npy"))
+
+    def load_rows(self, write_rows) -> int:
+        """Load the contiguous completed prefix; ``write_rows(r0, arr)``
+        stores each strip. Returns the row to resume at."""
+        if not self.path:
+            return 0
+        r0 = 0
+        while os.path.exists(self._tile_fn(r0)):
+            arr = np.load(self._tile_fn(r0))
+            write_rows(r0, arr)
+            r0 += arr.shape[self.rows_axis]
+        return r0
+
+    def save_tile(self, r0: int, arr) -> None:
+        if self.path:
+            self._atomic_save(self._tile_fn(r0), arr)
+
+
+def effective_sample_block(ws, sample_block, pad_to: int,
+                           bytes_per_cell: int) -> int:
+    """The sample block a row-strip engine will actually use: capped by
+    the padded cohort and by 6e9 bytes of strip carries (bytes_per_cell per
+    strip row x padded sample; the JAX package's 16 GB budget, kept so
+    checkpoint metas agree), then rounded up to pad_to. Checkpoint metas
+    record this value, not the requested one."""
+    base = -(-ws.n_samp // pad_to) * pad_to
+    if sample_block is None:
+        sample_block = 4096
+    hbm_rows = int(6e9) // max(1, bytes_per_cell * base)
+    sample_block = min(int(sample_block), max(pad_to, hbm_rows), base)
+    return -(-sample_block // pad_to) * pad_to
+
+
+def resolve_row_chunk(ws, sample_block: int, chunk, device) -> int:
+    """The SNP chunk a row-strip engine will actually use (float strip
+    checkpoint metas record it: the summation order depends on it)."""
+    if chunk is not None:
+        return int(chunk)
+    return auto_chunk(ws.n_snp, device)
+
+
+def _row_tile_setup(ws, sample_block, chunk, pad_to: int,
+                    bytes_per_cell: int, device):
+    """Shared preamble of the row-strip engines: the effective sample
+    block, the sample axis padded to a whole number of blocks, the chunk,
+    and the chunk source."""
+    sample_block = effective_sample_block(ws, sample_block, pad_to,
+                                          bytes_per_cell)
+    n_pad = -(-ws.n_samp // sample_block) * sample_block
+    chunk = resolve_row_chunk(ws, sample_block, chunk, device)
+    return (sample_block, n_pad, chunk,
+            _stage_or_stream(ws, chunk, n_pad, device))
+
+
+def gcta_parts_rows(ws, sample_block=None, chunk=None, pad_to: int = 128,
+                    start_row: int = 0, verbose: bool = False, mesh=None,
+                    device=None):
+    """Row-strip CGCTA_AlgArith: yields (row0, nrows, cov rows float64,
+    vgram rows int64, nlocus) per strip; start_row resumes at a later
+    strip. mesh= (column-sharded strips) is not ported and raises."""
+    guard_count_snps(ws.n_snp, "GCTA rows")
+    refuse_routes("gcta_parts_rows", mesh)
+    dev = resolve_device(device)
+    sample_block, n_pad, chunk, chunks = _row_tile_setup(
+        ws, sample_block, chunk, pad_to, 8, dev)
+    n = ws.n_samp
+    cov = torch.empty((sample_block, n_pad), dtype=torch.float64, device=dev)
+    vgr = torch.empty((sample_block, n_pad), dtype=torch.int32, device=dev)
+    for r0 in range(start_row, n, sample_block):
+        nr = min(sample_block, n - r0)
+        cov.zero_()
+        vgr.zero_()
+        nloc = torch.zeros((), dtype=torch.int64, device=dev)
+        for packed in chunks():
+            _gsum, _gnum, avg, scale, poly, _ = snp_stats(packed)
+            norm_gram_rows(packed, avg, scale, cov, r0, poly=poly,
+                           vcarry=vgr)
+            nloc += poly.sum()
+        if verbose:
+            print(f"GRM rows {r0 + nr}/{n}", flush=True)
+        yield (r0, nr, _host_copy(cov[:nr, :n]),
+               _host(vgr[:nr, :n]).astype(np.int64), int(nloc))
+
+
+def basis_gram_rows(ws, sample_block=None, chunk=None, pad_to: int = 128,
+                    start_row: int = 0, verbose: bool = False, mesh=None,
+                    device=None):
+    """Row-strip integer pairwise counts (``gram5_rows``): yields
+    (row0, nrows, B) with B (5, nrows, n) int64, the PairCounts base
+    matrices' rows, with device memory O(block x n). The int32 strip carry
+    flushes into a host int64 accumulator every ``count_flush_interval``
+    chunks. mesh= is not ported and raises."""
+    refuse_routes("basis_gram_rows", mesh)
+    dev = resolve_device(device)
+    sample_block, n_pad, chunk, chunks = _row_tile_setup(
+        ws, sample_block, chunk, pad_to, 20, dev)
+    n = ws.n_samp
+    flush_every = count_flush_interval(chunk)
+    carry = torch.empty((5, sample_block, n_pad), dtype=torch.int32,
+                        device=dev)
+    for r0 in range(start_row, n, sample_block):
+        nr = min(sample_block, n - r0)
+        carry.zero_()
+        acc = None  # int64 flush target (see pair_counts)
+        for ci, packed in enumerate(chunks(), 1):
+            gram5_rows(packed, carry, r0)  # in place
+            if ci % flush_every == 0:
+                if acc is None:
+                    acc = np.zeros((5, nr, n), np.int64)
+                acc += _host(carry[:, :nr, :n])
+                carry.zero_()
+        c = _host(carry[:, :nr, :n]).astype(np.int64)
+        if acc is not None:
+            c += acc
+        if verbose:
+            print(f"pairwise-count rows {r0 + nr}/{n}", flush=True)
+        yield r0, nr, c
+
+
+def pca_cov_rows(ws, sample_block=None, bayesian: bool = False, chunk=None,
+                 pad_to: int = 128, start_row: int = 0,
+                 verbose: bool = False, mesh=None, device=None):
+    """Row-strip exact-PCA covariance: yields (row0, nrows, cov rows).
+    mesh= is not ported and raises."""
+    refuse_routes("pca_cov_rows", mesh)
+    dev = resolve_device(device)
+    sample_block, n_pad, chunk, chunks = _row_tile_setup(
+        ws, sample_block, chunk, pad_to, 4, dev)
+    n = ws.n_samp
+    cov = torch.empty((sample_block, n_pad), dtype=torch.float64, device=dev)
+    for r0 in range(start_row, n, sample_block):
+        nr = min(sample_block, n - r0)
+        cov.zero_()
+        for packed in chunks():
+            _gsum, _gnum, avg, scale, _poly, _ = snp_stats(
+                packed, _pca_kind(bayesian))
+            norm_gram_rows(packed, avg, scale, cov, r0)
+        if verbose:
+            print(f"covariance rows {r0 + nr}/{n}", flush=True)
+        yield r0, nr, _host_copy(cov[:nr, :n])
+
+
+def king_homo_rows(ws, sample_block=None, chunk=None, pad_to: int = 128,
+                   mesh=None, device=None):
+    """Row-strip KING-homo parts: yields (row0, nrows, B (5, nrows, n)
+    int64 count strips, waf rows, waf2 rows): ``gram5_rows`` and two
+    indicator-mode ``norm_gram_rows`` (factors sqrt(w) and w). mesh= is
+    not ported and raises."""
+    guard_count_snps(ws.n_snp, "KING-homo rows")
+    refuse_routes("king_homo_rows", mesh)
+    dev = resolve_device(device)
+    sample_block, n_pad, chunk, chunks = _row_tile_setup(
+        ws, sample_block, chunk, pad_to, 28, dev)
+    n = ws.n_samp
+    grams = torch.empty((5, sample_block, n_pad), dtype=torch.int32,
+                        device=dev)
+    waf = torch.empty((sample_block, n_pad), dtype=torch.float64, device=dev)
+    waf2 = torch.empty_like(waf)
+    for r0 in range(0, n, sample_block):
+        nr = min(sample_block, n - r0)
+        for t in (grams, waf, waf2):
+            t.zero_()
+        for packed in chunks():
+            gram5_rows(packed, grams, r0)
+            _gsum, _gnum, avg, sqrt_w, _poly, w = snp_stats(packed, "king_w")
+            norm_gram_rows(packed, avg, sqrt_w, waf, r0, indicator=True)
+            norm_gram_rows(packed, avg, w, waf2, r0, indicator=True)
+        yield (r0, nr, _host(grams[:, :nr, :n]).astype(np.int64),
+               _host_copy(waf[:nr, :n]), _host_copy(waf2[:nr, :n]))
+
+
+def eigmix_rows(ws, sample_block=None, chunk=None, pad_to: int = 128,
+                mesh=None, device=None):
+    """Row-strip EIGMIX parts: yields (row0, nrows, cov rows, wvg rows,
+    het counts); het is the whole per-sample vector, the same on every
+    yield (each strip streams every chunk). mesh= is not ported and
+    raises."""
+    guard_count_snps(ws.n_snp, "EIGMIX rows")
+    refuse_routes("eigmix_rows", mesh)
+    dev = resolve_device(device)
+    sample_block, n_pad, chunk, chunks = _row_tile_setup(
+        ws, sample_block, chunk, pad_to, 8, dev)
+    n = ws.n_samp
+    cov = torch.empty((sample_block, n_pad), dtype=torch.float64, device=dev)
+    wvg = torch.empty_like(cov)
+    het = torch.empty(n_pad, dtype=torch.int32, device=dev)
+    for r0 in range(0, n, sample_block):
+        nr = min(sample_block, n - r0)
+        for t in (cov, wvg, het):
+            t.zero_()
+        for packed in chunks():
+            _gsum, _gnum, avg, one, _poly, _ = snp_stats(packed, "unit")
+            norm_gram_rows(packed, avg, one, cov, r0)
+            sqrt_d = snp_stats(packed, "eigmix_d")[3]
+            norm_gram_rows(packed, avg, sqrt_d, wvg, r0, indicator=True)
+            het_count(packed, het)
+        yield (r0, nr, _host_copy(cov[:nr, :n]), _host_copy(wvg[:nr, :n]),
+               _host(het[:n]).astype(np.int64))
+
+
 def _warn_checkpoint(checkpoint, what: str) -> None:
     if checkpoint is not None:
         warnings.warn("checkpoint= is honored on the super-tile routes "
@@ -373,17 +731,42 @@ def _warn_checkpoint(checkpoint, what: str) -> None:
 
 
 def king_homo_counts(ws, chunk=None, pad_to: int = 128,
-                     verbose: bool = False, checkpoint=None, device=None):
+                     verbose: bool = False, sample_block=None, mesh=None,
+                     tile_devices=None, tile_rank=None, checkpoint=None,
+                     device=None):
     """Returns (PairCounts, SumAFreq, SumAFreq2) for KING-homo
     (genKING.cpp:58-266): the count grams (``gram4``) and
     SumAFreq = sum_s w v_i v_j, SumAFreq2 = sum_s w^2 v_i v_j with
     w = p(1-p), p = sum/(2 num) (0 when num = 0), as two indicator-mode
-    ``norm_gram`` products with per-SNP factors sqrt(w) and w.
-    Full-square route; checkpoint= warns and is not honored, as on the
-    JAX package's in-HBM route."""
+    ``norm_gram`` products with per-SNP factors sqrt(w) and w. Past
+    24 n_pad^2 > 6e9 bytes of carries (the JAX package's threshold), or
+    with sample_block=, assembled from row strips (``king_homo_rows``).
+    checkpoint= warns and is not honored, as on the JAX package's
+    in-HBM and row routes."""
     guard_count_snps(ws.n_snp, "KING-homo counts")
+    refuse_routes("king_homo_counts", mesh, None, tile_devices, tile_rank)
+    refuse_grid_checkpoint("king_homo_counts", ws, checkpoint, 77)
+    n_pad_blk, _nblk = _pad_blocks(ws.n_samp, pad_to)
+    if sample_block is None and 24.0 * n_pad_blk * n_pad_blk > 6e9:
+        sample_block = 4096
+    if sample_block:
+        refuse_super_tiles("king_homo_counts", ws)
     _warn_checkpoint(checkpoint, "KING-homo")
     dev = resolve_device(device)
+    n = ws.n_samp
+    if sample_block:
+        B = np.empty((5, n, n), np.int64)
+        waf = np.empty((n, n))
+        waf2 = np.empty((n, n))
+        for r0, nr, cs, w1, w2 in king_homo_rows(
+                ws, sample_block=sample_block, chunk=chunk, pad_to=pad_to,
+                device=dev):
+            B[:, r0:r0 + nr] = cs
+            waf[r0:r0 + nr] = w1
+            waf2[r0:r0 + nr] = w2
+            if verbose:
+                print(f"KING-homo rows {r0 + nr}/{n}", flush=True)
+        return PairCounts(*B), waf, waf2
     n_pad = -(-ws.n_samp // pad_to) * pad_to
     if chunk is None:
         chunk = auto_chunk(ws.n_snp, dev)
@@ -396,22 +779,45 @@ def king_homo_counts(ws, chunk=None, pad_to: int = 128,
         _gsum, _gnum, avg, sqrt_w, _poly, w = snp_stats(packed, "king_w")
         norm_gram(packed, avg, sqrt_w, waf, indicator=True)
         norm_gram(packed, avg, w, waf2, indicator=True)
-    n = ws.n_samp
     return (PairCounts.from_grams4(_host(grams), n),
             _host(waf)[:n, :n].copy(), _host(waf2)[:n, :n].copy())
 
 
 def eigmix_parts(ws, chunk=None, pad_to: int = 128, verbose: bool = False,
-                 checkpoint=None, device=None):
+                 sample_block=None, mesh=None, tile_devices=None,
+                 tile_rank=None, checkpoint=None, device=None):
     """Returns (num = X X', denom = sum_s d v_i v_j, het per sample) for
     EIGMIX (CEigMix_AlgArith::Run, genEIGMIX.cpp:43-157): X the
     mean-centred unscaled dosage (missing -> 0; ``norm_gram`` with unit
     scale), d = 4p(1-p) with p = avg/2 (indicator-mode ``norm_gram`` with
-    sqrt(d)), het the per-sample heterozygote count (``het_count``).
-    Full-square route; checkpoint= warns and is not honored, as on the
-    JAX package's in-HBM route."""
+    sqrt(d)), het the per-sample heterozygote count (``het_count``). Past
+    5 n_pad^2 > 6e9 (the JAX package's threshold, pairwise.py:1343), or
+    with sample_block=, assembled from row strips (``eigmix_rows``).
+    checkpoint= warns and is not honored, as on the JAX package's in-HBM
+    and row routes."""
+    refuse_routes("eigmix_parts", mesh, None, tile_devices, tile_rank)
+    refuse_grid_checkpoint("eigmix_parts", ws, checkpoint, 76)
+    n_pad_blk, _nblk = _pad_blocks(ws.n_samp, pad_to)
+    if sample_block is None and 5.0 * n_pad_blk * n_pad_blk > 6e9:
+        sample_block = 4096
+    if sample_block:
+        refuse_super_tiles("eigmix_parts", ws)
     _warn_checkpoint(checkpoint, "EIGMIX")
     dev = resolve_device(device)
+    n = ws.n_samp
+    if sample_block:
+        num = np.empty((n, n))
+        wvg = np.empty((n, n))
+        het = None
+        for r0, nr, cs, wv, h in eigmix_rows(
+                ws, sample_block=sample_block, chunk=chunk, pad_to=pad_to,
+                device=dev):
+            num[r0:r0 + nr] = cs
+            wvg[r0:r0 + nr] = wv
+            het = h
+            if verbose:
+                print(f"EIGMIX rows {r0 + nr}/{n}", flush=True)
+        return num, wvg, het
     n_pad = -(-ws.n_samp // pad_to) * pad_to
     if chunk is None:
         chunk = auto_chunk(ws.n_snp, dev)
@@ -425,6 +831,5 @@ def eigmix_parts(ws, chunk=None, pad_to: int = 128, verbose: bool = False,
         sqrt_d = snp_stats(packed, "eigmix_d")[3]
         norm_gram(packed, avg, sqrt_d, wvg, indicator=True)
         het_count(packed, het)
-    n = ws.n_samp
     return (_host(cov)[:n, :n].copy(), _host(wvg)[:n, :n].copy(),
             _host(het)[:n].astype(np.int64))
