@@ -5,7 +5,10 @@ PLINK method-of-moments IBD, individual beta, GRM (GCTA, Eigenstrat, Corr,
 EIGMIX, IndivBeta), EIGMIX, exact and randomized PCA, and the streaming
 KING-robust relatedness screen (``king_ibd_selection``). The count and GRM
 analyses take ``sample_block=`` for the row-strip route, which keeps
-device memory O(block x N).
+device memory O(block x N), and past the slab-staging budget (or with
+``tiles=True`` / ``tile_rank=``) the super-tile route of ``ops/tiles.py``,
+which also bounds host -> device traffic and splits the tiles over
+independent processes.
 
 Public functions mirror the JAX package's names and ``snpgds*`` aliases
 and take ``device=``: ``None`` means the CUDA card and raises when there is

@@ -1,5 +1,5 @@
-// K1 gram4: fused 2-bit decode + reduced-basis count grams, and its strip
-// mode K1r gram5_rows.
+// K1 gram4: fused 2-bit decode + reduced-basis count grams, its strip mode
+// K1r gram5_rows and its tile mode K1t gram5_tile.
 //
 // K1 replaces snprelate_tpu/ops/pairwise.py:_gram4_step (decode2bit ->
 // genotype_basis -> _sym_grams4). For one packed SNP chunk, (S, N/4) bytes
@@ -14,6 +14,14 @@
 // A strip is not square, so both het cross-grams are computed. The KING
 // screen passes n_cols = row0 + rows rounded up to 64: its triangle test
 // never reads a column at or past the row, so half the work is skipped.
+//
+// K1t replaces _basis_tile_scan_c (snprelate_tpu/ops/tiles.py:732): the
+// five grams Vi'Vj, Hi'Hj, Di'Dj, Hi'Vj and Vi'Hj of one (g, g) super tile,
+// the rows from one packed sample-group slab and the columns from another,
+// each (S, g/4) bytes over every SNP of the selection, in one launch. It is
+// K1r's tile code with two packed operands where K1 and K1r pass one
+// pointer twice; the int32 sums are exact below 2^31 SNPs, which the
+// engines guard (guard_count_snps).
 //
 // What bounds them on the card: int8 tensor-core operations, 2*S per
 // output entry and gram, against S*N/4 bytes of input and the int32 carry
@@ -69,11 +77,13 @@ __device__ __forceinline__ uint32_t lds32(const uint8_t *p) {
   return *reinterpret_cast<const uint32_t *>(p);
 }
 
-// The grams of one 64 x 64 tile (rows from sample i0, columns from j0)
-// over the whole chunk, into acc: V'V, H'H, D'D, H'V and, with NG == 5,
-// V'H. Called by all THREADS threads of the block.
+// The grams of one 64 x 64 tile (rows from sample i0 of pa, columns from
+// sample j0 of pb, two (S, B) packed chunks that may be the same) over the
+// whole chunk, into acc: V'V, H'H, D'D, H'V and, with NG == 5, V'H. Called
+// by all THREADS threads of the block.
 template <int NG>
-__device__ __forceinline__ void tile_grams(const uint8_t *__restrict__ packed,
+__device__ __forceinline__ void tile_grams(const uint8_t *__restrict__ pa,
+                                           const uint8_t *__restrict__ pb,
                                            int S, int B, int i0, int j0,
                                            uint8_t (&sm)[2][TILE][LDS],
                                            int (&acc)[NG][2][2][4]) {
@@ -85,7 +95,7 @@ __device__ __forceinline__ void tile_grams(const uint8_t *__restrict__ packed,
   // It reads 4 packed words (4 SNPs x 16 samples) and writes 16 words of
   // 4 code bytes (one sample x 4 SNPs) into its side's tile.
   const int side = tid >> 7, q = lane, wc = warp & 3;
-  const uint8_t *src = packed + ((side ? j0 : i0) >> 2) + 4 * wc;
+  const uint8_t *src = (side ? pb + (j0 >> 2) : pa + (i0 >> 2)) + 4 * wc;
   uint8_t *dst = &sm[side][16 * wc][4 * q];
 
 #pragma unroll
@@ -188,7 +198,7 @@ gram4_kernel(const uint8_t *__restrict__ packed, int S, int B,
   const long long N = 4LL * B;
   const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
   int acc[4][2][2][4];  // [gram][m tile][n tile][fragment]
-  tile_grams<4>(packed, S, B, i0, j0, sm, acc);
+  tile_grams<4>(packed, packed, S, B, i0, j0, sm, acc);
   add_tile<4>(carry, N * N, N, i0, j0, acc);
 }
 
@@ -200,8 +210,22 @@ gram5_rows_kernel(const uint8_t *__restrict__ packed, int S, int B, int row0,
   const long long N = 4LL * B;
   const int r0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
   int acc[5][2][2][4];
-  tile_grams<5>(packed, S, B, row0 + r0, j0, sm, acc);
+  tile_grams<5>(packed, packed, S, B, row0 + r0, j0, sm, acc);
   add_tile<5>(carry, (long long)rows * N, N, r0, j0, acc);
+}
+
+// The super tile: block (x, y) owns rows 64y of slab_i and columns 64x of
+// slab_j.
+__global__ void __launch_bounds__(THREADS)
+gram5_tile_kernel(const uint8_t *__restrict__ slab_i,
+                  const uint8_t *__restrict__ slab_j, int S, int B,
+                  int *__restrict__ carry) {
+  __shared__ __align__(16) uint8_t sm[2][TILE][LDS];
+  const long long G = 4LL * B;
+  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
+  int acc[5][2][2][4];
+  tile_grams<5>(slab_i, slab_j, S, B, i0, j0, sm, acc);
+  add_tile<5>(carry, G * G, G, i0, j0, acc);
 }
 
 }  // namespace
@@ -228,6 +252,22 @@ extern "C" int gram5_rows_launch(const void *packed, int S, int B, int row0,
     gram5_rows_kernel<<<dim3(n_cols / TILE, rows / TILE), THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t *>(packed), S, B, row0, rows,
+        static_cast<int *>(carry));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// slab_i, slab_j: (S, B) uint8 each, B % 16 == 0 (two sample groups of
+// g = 4B samples over the same S SNPs; may be the same pointer); carry:
+// (5, 4B, 4B) int32, updated in place. Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int gram5_tile_launch(const void *slab_i, const void *slab_j,
+                                 int S, int B, void *carry, void *stream) {
+  const int tiles = 4 * B / TILE;
+  if (tiles > 0 && S > 0)
+    gram5_tile_kernel<<<dim3(tiles, tiles), THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t *>(slab_i),
+        static_cast<const uint8_t *>(slab_j), S, B,
         static_cast<int *>(carry));
   return static_cast<int>(cudaGetLastError());
 }

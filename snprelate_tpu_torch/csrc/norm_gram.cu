@@ -1,6 +1,6 @@
 // K2b norm_gram: fused 2-bit decode + normalization + covariance gram, with
-// the GCTA valid-and-polymorphic count gram on request; and its strip mode
-// norm_gram_rows.
+// the GCTA valid-and-polymorphic count gram on request; its strip mode
+// norm_gram_rows and its tile mode norm_gram_tile.
 //
 // Replaces snprelate_tpu/ops/pairwise.py:_pca_step (make_pca_block ->
 // _sym_blocks) and _gcta_step, and the float grams of _king_homo_step and
@@ -19,6 +19,17 @@
 // rows [row0, row0 + R) it adds X_r'X into a float64 (R, N) carry (and the
 // count gram into an int32 (R, N) carry), every tile of the rectangle
 // computed, none mirrored.
+//
+// The tile mode replaces _gcta_tile_scan_c (snprelate_tpu/ops/tiles.py:241)
+// and the float grams of _eigmix_tile_scan_c and _king_homo_tile_scan_c
+// (:886, :1035): X_i'X_j of two packed sample-group slabs (S, g/4) of one
+// super tile, every tile of the (g, g) square computed, added into a
+// float64 (g, g) carry (and the count gram into an int32 one). With
+// `divide` set (GCTA) the epilogue then replaces each entry by
+// carry / (2 vcarry), the per-pair missing denominator applied on the card
+// as the JAX scan does, so only the finished GRM tile leaves it. The
+// caller splits a tile past 2^24 SNPs into launches below it and divides
+// on the last.
 //
 // What bounds it on the card: float32 operations, S*N*(N+1) for the
 // symmetric gram (and as many again for the GCTA count gram), against
@@ -54,21 +65,26 @@ constexpr int TILE = 64;      // samples per output-tile side
 constexpr int BK = 32;        // SNPs per shared-memory stage
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
-// ROWS: the strip mode, block (x, y) owning rows row0 + 64y of the packed
-// chunk and columns 64x, at row 64y of the carry; else the upper triangle
-// of the square (row0 = 0).
-template <bool GCTA, bool ROWS>
+enum Mode { SQUARE, ROWS, TILES };
+
+// SQUARE: the upper triangle of the square (row0 = 0, pb = pa). ROWS: the
+// strip mode, block (x, y) owning rows row0 + 64y of the packed chunk and
+// columns 64x, at row 64y of the carry (pb = pa). TILES: block (x, y) owning
+// rows 64y of pa and columns 64x of pb, every tile (row0 = 0); `divide`
+// (with GCTA) ends with carry / (2 vcarry).
+template <bool GCTA, Mode MODE>
 __global__ void __launch_bounds__(THREADS)
-norm_gram_kernel(const uint8_t *__restrict__ packed, int S, int B, int row0,
-                 const double *__restrict__ avg,
+norm_gram_kernel(const uint8_t *__restrict__ pa, const uint8_t *__restrict__ pb,
+                 int S, int B, int row0, const double *__restrict__ avg,
                  const double *__restrict__ scale,
                  const bool *__restrict__ poly, int indicator,
-                 double *__restrict__ carry, int *__restrict__ vcarry) {
+                 double *__restrict__ carry, int *__restrict__ vcarry,
+                 int divide) {
   __shared__ __align__(16) float xs[2][BK][TILE];  // [row|col side][snp][sample]
   __shared__ __align__(16) float vs[GCTA ? 2 : 1][GCTA ? BK : 1][TILE];
 
   // a lower tile of the square: written by its mirror
-  if (!ROWS && blockIdx.x < blockIdx.y) return;
+  if (MODE == SQUARE && blockIdx.x < blockIdx.y) return;
   const long long N = 4LL * B;
   const int r0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
   const int i0 = row0 + r0;
@@ -76,7 +92,7 @@ norm_gram_kernel(const uint8_t *__restrict__ packed, int S, int B, int row0,
 
   // Stage fill: thread -> (side, SNP sr, 16-sample word column wc).
   const int side = tid >> 7, sr = (tid & 127) >> 2, wc = tid & 3;
-  const uint8_t *src = packed + ((side ? j0 : i0) >> 2) + 4 * wc;
+  const uint8_t *src = (side ? pb + (j0 >> 2) : pa + (i0 >> 2)) + 4 * wc;
 
   double sum[4][4];
   float cnt[4][4];
@@ -153,42 +169,48 @@ norm_gram_kernel(const uint8_t *__restrict__ packed, int S, int B, int row0,
 
   // Epilogue: carries += tile and, off the diagonal of the square, their
   // mirror tiles += its transpose (in place); each pair of tiles has one
-  // owner.
-  const bool mirror = !ROWS && i0 != j0;
+  // owner. In TILES mode with `divide`, the GRM entry replaces the sum.
+  const bool mirror = MODE == SQUARE && i0 != j0;
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
     for (int b = 0; b < 4; ++b) {
       const long long r = r0 + 4 * ty + a, c = j0 + 4 * tx + b;
-      carry[r * N + c] += sum[a][b];
+      const double total = carry[r * N + c] + sum[a][b];
       if (mirror) carry[c * N + r] += sum[a][b];
       if constexpr (GCTA) {
-        const int v = __float2int_rn(cnt[a][b]);
-        vcarry[r * N + c] += v;
-        if (mirror) vcarry[c * N + r] += v;
+        const int v = vcarry[r * N + c] + __float2int_rn(cnt[a][b]);
+        vcarry[r * N + c] = v;
+        if (mirror) vcarry[c * N + r] += __float2int_rn(cnt[a][b]);
+        carry[r * N + c] = (MODE == TILES && divide)
+                               ? total / (2.0 * (double)v) : total;
+      } else {
+        carry[r * N + c] = total;
       }
     }
 }
 
-template <bool ROWS>
-int launch(const void *packed, int S, int B, int row0, int rows,
+template <Mode MODE>
+int launch(const void *pa, const void *pb, int S, int B, int row0, int rows,
            const void *avg, const void *scale, const void *poly,
-           int indicator, void *carry, void *vcarry, void *stream) {
+           int indicator, void *carry, void *vcarry, int divide,
+           void *stream) {
   const int tiles = 4 * B / TILE;
   const dim3 grid(tiles, rows / TILE);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t *p = static_cast<const uint8_t *>(packed);
+  const uint8_t *p = static_cast<const uint8_t *>(pa);
+  const uint8_t *q = static_cast<const uint8_t *>(pb);
   const double *a = static_cast<const double *>(avg);
   const double *s = static_cast<const double *>(scale);
   if (rows <= 0 || tiles <= 0) return static_cast<int>(cudaGetLastError());
   if (vcarry)
-    norm_gram_kernel<true, ROWS><<<grid, THREADS, 0, st>>>(
-        p, S, B, row0, a, s, static_cast<const bool *>(poly), indicator,
-        static_cast<double *>(carry), static_cast<int *>(vcarry));
+    norm_gram_kernel<true, MODE><<<grid, THREADS, 0, st>>>(
+        p, q, S, B, row0, a, s, static_cast<const bool *>(poly), indicator,
+        static_cast<double *>(carry), static_cast<int *>(vcarry), divide);
   else
-    norm_gram_kernel<false, ROWS><<<grid, THREADS, 0, st>>>(
-        p, S, B, row0, a, s, nullptr, indicator,
-        static_cast<double *>(carry), nullptr);
+    norm_gram_kernel<false, MODE><<<grid, THREADS, 0, st>>>(
+        p, q, S, B, row0, a, s, nullptr, indicator,
+        static_cast<double *>(carry), nullptr, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -204,8 +226,8 @@ extern "C" int norm_gram_launch(const void *packed, int S, int B,
                                 const void *avg, const void *scale,
                                 const void *poly, int indicator, void *carry,
                                 void *vcarry, void *stream) {
-  return launch<false>(packed, S, B, 0, 4 * B, avg, scale, poly, indicator,
-                       carry, vcarry, stream);
+  return launch<SQUARE>(packed, packed, S, B, 0, 4 * B, avg, scale, poly,
+                        indicator, carry, vcarry, 0, stream);
 }
 
 // The strip mode: as norm_gram_launch, with carry (rows, 4B) float64 and
@@ -216,6 +238,20 @@ extern "C" int norm_gram_rows_launch(const void *packed, int S, int B,
                                      const void *scale, const void *poly,
                                      int indicator, void *carry, void *vcarry,
                                      void *stream) {
-  return launch<true>(packed, S, B, row0, rows, avg, scale, poly, indicator,
-                      carry, vcarry, stream);
+  return launch<ROWS>(packed, packed, S, B, row0, rows, avg, scale, poly,
+                      indicator, carry, vcarry, 0, stream);
+}
+
+// The tile mode: slab_i, slab_j (S, B) uint8 each (may be the same
+// pointer), the other arguments as norm_gram_launch with carry (4B, 4B)
+// float64 and vcarry (4B, 4B) int32 (or null) holding the rows of slab_i
+// against the columns of slab_j. divide: 1 (needs vcarry) to end with
+// carry = carry / (2 vcarry) entrywise.
+extern "C" int norm_gram_tile_launch(const void *slab_i, const void *slab_j,
+                                     int S, int B, const void *avg,
+                                     const void *scale, const void *poly,
+                                     int indicator, void *carry, void *vcarry,
+                                     int divide, void *stream) {
+  return launch<TILES>(slab_i, slab_j, S, B, 0, 4 * B, avg, scale, poly,
+                      indicator, carry, vcarry, divide, stream);
 }

@@ -55,9 +55,12 @@ def indiv_beta(data, sample_id=None, snp_id=None, autosome_only=True,
     """snpgdsIndivBeta (R/IBD.R:838). use_matrix packs the symmetric
     beta output (useMatrix=TRUE analog); with_id=False drops the id
     vectors (with.id=FALSE). sample_block takes the row-strip engine
-    (automatic past the JAX package's carry threshold); mesh=,
-    tile_devices= and tile_rank= name routes that are not ported and
-    raise NotImplementedError. num_thread is accepted and ignored. device:
+    (automatic past the JAX package's carry threshold), and past the
+    slab-staging budget the super-tile engine. tile_rank=(rank, world):
+    rank run of the multi-host tile partition into checkpoint= (returns
+    None); a tile_rank=None run over the same checkpoint assembles it.
+    mesh= and tile_devices= raise NotImplementedError (ROADMAP item 12).
+    num_thread is accepted and ignored. device:
     None = the CUDA card; "cpu" runs the plain versions."""
     if method != "weighted":
         raise ValueError("method must be 'weighted'")
@@ -67,6 +70,8 @@ def indiv_beta(data, sample_id=None, snp_id=None, autosome_only=True,
                     sample_block=sample_block, mesh=mesh,
                     tile_devices=tile_devices, tile_rank=tile_rank,
                     device=device)
+    if c is None:
+        return None
     beta, avg = _beta_raw(c, inbreeding)
     out = (beta - avg) / (1.0 - avg)
     return IndivBetaResult(ws.sample_id if with_id else None,

@@ -33,17 +33,22 @@ def diss(data, sample_id=None, snp_id=None, autosome_only=True,
          num_thread=None, device=None) -> DissResult:
     """snpgdsDiss (R/IBD.R:432), on the KING-homo engine's counts and
     weighted validity gram. sample_block takes the row-strip engine
-    (automatic past the JAX package's carry threshold); mesh=,
-    tile_devices= and tile_rank= name routes that are not ported and
-    raise NotImplementedError. num_thread is accepted and ignored. device:
-    None = the CUDA card; "cpu" runs the plain versions."""
+    (automatic past the JAX package's carry threshold), and past the
+    slab-staging budget the super-tile engine. tile_rank=(rank, world):
+    rank run of the multi-host tile partition into checkpoint= (returns
+    None); a tile_rank=None run over the same checkpoint assembles it.
+    mesh= and tile_devices= raise NotImplementedError (ROADMAP item 12).
+    num_thread is accepted and ignored. device: None = the CUDA card;
+    "cpu" runs the plain versions."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
-    c, waf, _ = king_homo_counts(ws, chunk=chunk, verbose=verbose,
-                                 sample_block=sample_block, mesh=mesh,
-                                 tile_devices=tile_devices,
-                                 tile_rank=tile_rank, checkpoint=checkpoint,
-                                 device=device)
+    parts = king_homo_counts(ws, chunk=chunk, verbose=verbose,
+                             sample_block=sample_block, mesh=mesh,
+                             tile_devices=tile_devices, tile_rank=tile_rank,
+                             checkpoint=checkpoint, device=device)
+    if parts is None:
+        return None
+    c, waf, _ = parts
     # w(a,b) = a(2-b) + (2-a)b over the joint counts reduces to
     # 2*IBS1 + 4*IBS0 + 2*N11 (w is 2 on {01,10,11,12,21}, 4 on {02,20})
     sum_geno = (2 * (c.ibs1 + c.n11) + 4 * c.ibs0).astype(np.float64)

@@ -34,11 +34,13 @@ def eigmix_ibd_matrix(ws, diagadj: bool = True, chunk=None, verbose=False,
                       sample_block=None, mesh=None, tile_devices=None,
                       tile_rank=None, checkpoint=None,
                       device=None) -> np.ndarray:
-    num, denom, het = eigmix_parts(ws, chunk=chunk, verbose=verbose,
-                                   sample_block=sample_block, mesh=mesh,
-                                   tile_devices=tile_devices,
-                                   tile_rank=tile_rank,
-                                   checkpoint=checkpoint, device=device)
+    parts = eigmix_parts(ws, chunk=chunk, verbose=verbose,
+                         sample_block=sample_block, mesh=mesh,
+                         tile_devices=tile_devices, tile_rank=tile_rank,
+                         checkpoint=checkpoint, device=device)
+    if parts is None:
+        return None
+    num, denom, het = parts
     if diagadj:
         num = num.copy()
         np.fill_diagonal(num, num.diagonal() - het)
@@ -53,10 +55,13 @@ def eigmix(data, sample_id=None, snp_id=None, autosome_only=True,
            tile_rank=None, checkpoint=None, num_thread=None,
            device=None) -> EigMixResult:
     """snpgdsEIGMIX (R/PCA.R:311). sample_block takes the row-strip
-    engine (automatic past the JAX package's carry threshold); mesh=,
-    tile_devices= and tile_rank= name routes that are not ported and
-    raise NotImplementedError. num_thread is accepted and ignored.
-    device: None = the CUDA card; "cpu" runs the plain versions."""
+    engine (automatic past the JAX package's carry threshold), and past
+    the slab-staging budget the super-tile engine. tile_rank=(rank,
+    world): rank run of the multi-host tile partition into checkpoint=
+    (returns None); a tile_rank=None run over the same checkpoint
+    assembles it. mesh= and tile_devices= raise NotImplementedError
+    (ROADMAP item 12). num_thread is accepted and ignored. device: None =
+    the CUDA card; "cpu" runs the plain versions."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
     n = ws.n_samp
@@ -67,6 +72,8 @@ def eigmix(data, sample_id=None, snp_id=None, autosome_only=True,
                             mesh=mesh, tile_devices=tile_devices,
                             tile_rank=tile_rank, checkpoint=checkpoint,
                             device=device)
+    if mat is None:
+        return None
     af, _, _, _ = snp_stats(ws)
 
     eigenval = eigenvect = None

@@ -1,6 +1,6 @@
 """Genetic relationship matrices (reference: R/IBD.R:543-615 snpgdsGRM +
-src/genPCA.cpp:1614-1717 gnrGRM), on the full-square or the row-strip
-route.
+src/genPCA.cpp:1614-1717 gnrGRM), on the full-square, the row-strip or
+the super-tile route.
 
 Methods:
   GCTA       — normalized covariance with per-pair missing denominators
@@ -21,10 +21,9 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..ops.pairwise import (TileCheckpointer, effective_sample_block,
-                            gcta_grm_parts, gcta_parts_rows, pca_cov_rows,
-                            pca_covariance, refuse_grid_checkpoint,
-                            refuse_routes, refuse_super_tiles,
-                            resolve_row_chunk)
+                            gcta_grm_parts, gcta_parts_rows,
+                            past_staging_budget, pca_cov_rows,
+                            pca_covariance, refuse_routes, resolve_row_chunk)
 from ..utils.device import resolve_device
 from ..utils.packed import PackedSymmetric
 from ..workspace import init_workspace
@@ -94,40 +93,61 @@ def grm(data, sample_id=None, snp_id=None, autosome_only=True,
         num_thread=None, device=None) -> GRMResult:
     """snpgdsGRM (R/IBD.R:543) for GCTA, Eigenstrat, Corr, EIGMIX
     (= Weighted) and IndivBeta. With checkpoint=path the GCTA/Eigenstrat
-    accumulators are saved every 64 chunks (full square) or every strip
-    (rows) and a rerun resumes. sample_block computes the GRM in row
-    strips of this many samples (device memory O(block x n); automatic for
-    GCTA/Eigenstrat past the JAX package's threshold). tiles=False names
-    the row-strip route; tiles=True (with sample_block, GCTA/Eigenstrat),
-    tile_devices=, tile_rank= and mesh= name routes that are not ported
-    and raise NotImplementedError, as does a GCTA/Eigenstrat row-strip
-    selection past the slab-staging budget, where the JAX package
-    switches to super tiles. tile_group is read only by that route.
-    num_thread is accepted and ignored. device: None = the CUDA card;
-    "cpu" runs the plain versions."""
+    accumulators are saved every 64 chunks (full square), every strip
+    (rows) or every tile (super tiles) and a rerun resumes. sample_block
+    computes the GRM in row strips of this many samples (device memory
+    O(block x n); automatic for GCTA/Eigenstrat past the JAX package's
+    threshold). With sample_block, GCTA/Eigenstrat take the super-tile
+    route (``ops.tiles.grm_tiled``, tile_group= its sample group) on
+    tiles=True or past the slab-staging budget; tiles=False keeps the
+    strips. tile_rank=(rank, world) (GCTA/Eigenstrat only) computes this
+    rank's tile rows into checkpoint= and returns None; a later run over
+    the same checkpoint (a tile-grid meta, tag 71 or 72) assembles the
+    GRM without recomputing. mesh= and tile_devices= raise
+    NotImplementedError (ROADMAP item 12). num_thread is accepted and
+    ignored. device: None = the CUDA card; "cpu" runs the plain
+    versions."""
     if method == "Weighted":
         # "Weighted GCTA" is the EIGMIX-based GRM (R/IBD.R:552-556)
         method = "EIGMIX"
     if method not in ("GCTA", "Eigenstrat", "Corr", "EIGMIX", "IndivBeta"):
         raise ValueError("Invalid 'method'!")
-    refuse_routes("grm", mesh, None, tile_devices, tile_rank)
+    refuse_routes("grm", mesh, tile_devices)
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
     n = ws.n_samp
+    row_capable = method in ("GCTA", "Eigenstrat")
     if sample_block is None and _auto_row_tiling(n, method):
         sample_block = 4096
-    row_capable = method in ("GCTA", "Eigenstrat")
-    if tiles is None and row_capable:
-        refuse_grid_checkpoint("grm", ws, checkpoint,
-                               71 if method == "GCTA" else 72)
-    if sample_block is not None and row_capable:
-        if tiles:
-            refuse_routes("grm", tiles=True)
-        if tiles is not False:
-            refuse_super_tiles("grm", ws)
+    if tile_rank is not None:
+        tiles = True
+        if sample_block is None:
+            sample_block = 4096  # any value: tile_group drives the size
+        if not row_capable:
+            raise ValueError("tile_rank= needs the super-tile engine "
+                             "(method GCTA or Eigenstrat)")
+    if tiles is None and checkpoint is not None and row_capable:
+        # assembly or resume of a tile-grid checkpoint (after tile_rank
+        # rank runs): the strips would see a foreign meta and recompute
+        from ..ops.tiles import probe_grid_meta
+
+        if probe_grid_meta(checkpoint, 71 if method == "GCTA" else 72,
+                           ws.n_snp, n) is not None:
+            tiles = True
+            if sample_block is None:
+                sample_block = 4096
     dev = resolve_device(device)
     avg_val = None
-    if sample_block is not None and row_capable:
+    if (sample_block is not None and row_capable
+            and (tiles or (tiles is not False and past_staging_budget(ws)))):
+        from ..ops.tiles import grm_tiled
+
+        mat = grm_tiled(ws, tile_group, method=method, chunk=chunk,
+                        checkpoint=checkpoint, verbose=verbose,
+                        tile_rank=tile_rank, device=dev)
+        if mat is None:  # a rank run: its tiles are in checkpoint=
+            return None
+    elif sample_block is not None and row_capable:
         mat = _grm_rows(ws, method, sample_block, chunk, checkpoint, verbose,
                         dev)
     elif method == "EIGMIX":
@@ -143,14 +163,15 @@ def grm(data, sample_id=None, snp_id=None, autosome_only=True,
                              verbose=verbose, device=dev)
         mat *= (n - 1) / float(np.trace(mat))
     elif method == "Corr" and sample_block is not None:
-        # large N: the GCTA row strips, then the rescale (genPCA.cpp:1658)
+        # large N: whichever GCTA route applies (strips or tiles), then
+        # the rescale (genPCA.cpp:1658)
         mat = _corr(grm(data, sample_id=sample_id, snp_id=snp_id,
                         autosome_only=autosome_only,
                         remove_monosnp=remove_monosnp, maf=maf,
                         missing_rate=missing_rate, method="GCTA",
                         verbose=verbose, chunk=chunk, checkpoint=checkpoint,
                         sample_block=sample_block, tiles=tiles,
-                        device=dev).grm)
+                        tile_group=tile_group, device=dev).grm)
     else:
         mat = _gcta(ws, chunk, checkpoint, verbose, dev)
         if method == "Corr":

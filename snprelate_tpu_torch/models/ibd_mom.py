@@ -124,9 +124,11 @@ def ibd_mom(data, sample_id=None, snp_id=None, autosome_only=True,
             checkpoint=None, num_thread=None, device=None) -> IBDMoMResult:
     """snpgdsIBDMoM (R/IBD.R:22). use_matrix packs the symmetric outputs
     (useMatrix=TRUE analog). sample_block takes the row-strip engine
-    (automatic past the JAX package's carry threshold); mesh=,
-    tile_devices= and tile_rank= name routes that are not ported and
-    raise NotImplementedError. num_thread is accepted and ignored. device:
+    (automatic past the JAX package's carry threshold), and past the
+    slab-staging budget the super-tile engine. tile_rank=(rank, world):
+    rank run of the multi-host tile partition into checkpoint= (returns
+    None); a tile_rank=None run over the same checkpoint assembles it.
+    mesh= and tile_devices= raise NotImplementedError (ROADMAP item 12). num_thread is accepted and ignored. device:
     None = the CUDA card; "cpu" runs the plain versions."""
     ws, afreq_used = init_workspace(data, sample_id, snp_id, autosome_only,
                                     remove_monosnp, maf, missing_rate,
@@ -140,6 +142,8 @@ def ibd_mom(data, sample_id=None, snp_id=None, autosome_only=True,
                     sample_block=sample_block, mesh=mesh,
                     tile_devices=tile_devices, tile_rank=tile_rank,
                     device=device)
+    if c is None:
+        return None
     k0, k1 = _est_plink_kinship(c.ibs0, c.ibs1, c.ibs2, e, kinship_constraint)
     np.fill_diagonal(k0, 0.0)
     np.fill_diagonal(k1, 0.0)

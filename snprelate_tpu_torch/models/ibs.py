@@ -42,16 +42,22 @@ def ibs(data, sample_id=None, snp_id=None, autosome_only=True,
     (0.5*IBS1 + IBS2) / (IBS0+IBS1+IBS2) per pair (genIBS.cpp:470-475).
     use_matrix packs the symmetric output (useMatrix=TRUE analog).
     sample_block takes the row-strip engine (automatic past the JAX
-    package's carry threshold); mesh=, tile_devices= and tile_rank= name
-    routes that are not ported and raise NotImplementedError. num_thread
-    is accepted and ignored. device: None = the CUDA card; "cpu" runs the
-    plain versions."""
+    package's carry threshold), and past the slab-staging budget the
+    super-tile engine. tile_rank=(rank, world): rank run of the multi-host
+    tile partition, which writes this rank's tiles into checkpoint= and
+    returns None; a tile_rank=None run over the same checkpoint assembles
+    them. mesh= and tile_devices= name routes that are not ported and
+    raise NotImplementedError (ROADMAP item 12). num_thread is accepted and
+    ignored. device: None = the CUDA card; "cpu" runs the plain
+    versions."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
     c = pair_counts(ws, chunk=chunk, checkpoint=checkpoint,
                     verbose=verbose, sample_block=sample_block, mesh=mesh,
                     tile_devices=tile_devices, tile_rank=tile_rank,
                     device=device)
+    if c is None:
+        return None
     total = c.nvalid.astype(np.float64)
     with np.errstate(invalid="ignore"):
         avg = (0.5 * c.ibs1 + c.ibs2) / total
@@ -71,4 +77,6 @@ def ibs_num(data, sample_id=None, snp_id=None, autosome_only=True,
                     verbose=verbose, sample_block=sample_block, mesh=mesh,
                     tile_devices=tile_devices, tile_rank=tile_rank,
                     device=device)
+    if c is None:
+        return None
     return IBSNumResult(ws.sample_id, ws.snp_id, c.ibs0, c.ibs1, c.ibs2)

@@ -12,7 +12,10 @@ Both estimators post-process the fused pairwise counters:
 ``king_ibd_selection`` screens a cohort for related pairs without the
 n x n matrix: row strips of the count grams (``gram5_rows``, K1r) and a
 screen that compacts each strip's candidates on the device
-(``king_screen``, K6), then the exact float64 filter on the host.
+(``king_screen``, K6), then the exact float64 filter on the host; past the
+slab-staging budget, or with tiles=True or tile_rank=, super tiles of the
+count grams (``gram5_tile``, K1t) and the same screen per tile
+(``king_screen_tile``, K6t).
 """
 
 from __future__ import annotations
@@ -24,9 +27,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.kernels import gram5_rows, king_screen
-from ..ops.pairwise import (_row_tile_setup, king_homo_counts, pair_counts,
-                            refuse_routes, refuse_super_tiles)
+from ..ops.kernels import gram5_rows, gram5_tile, king_screen, king_screen_tile
+from ..ops.pairwise import (_row_tile_setup, auto_chunk, king_homo_counts,
+                            pair_counts, past_staging_budget, refuse_routes)
 from ..utils.device import resolve_device
 from ..utils.packed import maybe_packed
 from ..workspace import init_workspace
@@ -89,19 +92,25 @@ def ibd_king(data, sample_id=None, snp_id=None, autosome_only=True,
     """snpgdsIBDKING (R/IBD.R:333), KING-robust or KING-homo. use_matrix
     packs the symmetric outputs (useMatrix=TRUE analog). sample_block
     takes the row-strip engine (automatic past the JAX package's carry
-    thresholds). mesh=, tile_devices= and tile_rank= name routes that are
-    not ported and raise NotImplementedError. num_thread is accepted and
+    thresholds), and past the slab-staging budget the super-tile engine.
+    tile_rank=(rank, world): rank run of the multi-host tile partition
+    into checkpoint= (returns None); a tile_rank=None run over the same
+    checkpoint assembles it. mesh= and tile_devices= raise
+    NotImplementedError (ROADMAP item 12). num_thread is accepted and
     ignored. device: None = the CUDA card; "cpu" runs the plain
     versions."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
 
     if type == "KING-homo":
-        c, waf, waf2 = king_homo_counts(ws, chunk=chunk, verbose=verbose,
-                                        sample_block=sample_block, mesh=mesh,
-                                        tile_devices=tile_devices,
-                                        tile_rank=tile_rank,
-                                        checkpoint=checkpoint, device=device)
+        parts = king_homo_counts(ws, chunk=chunk, verbose=verbose,
+                                 sample_block=sample_block, mesh=mesh,
+                                 tile_devices=tile_devices,
+                                 tile_rank=tile_rank, checkpoint=checkpoint,
+                                 device=device)
+        if parts is None:
+            return None
+        c, waf, waf2 = parts
         with np.errstate(divide="ignore", invalid="ignore"):
             theta = 0.5 - c.sum_sq / (8.0 * waf)
             k0 = c.ibs0 / (2.0 * waf2)
@@ -121,6 +130,8 @@ def ibd_king(data, sample_id=None, snp_id=None, autosome_only=True,
                     sample_block=sample_block, mesh=mesh,
                     tile_devices=tile_devices, tile_rank=tile_rank,
                     device=device)
+    if c is None:
+        return None
     nloci = c.nvalid.astype(np.float64)
     with np.errstate(divide="ignore", invalid="ignore"):
         ibs0 = np.where(nloci > 0, c.ibs0 / nloci, np.nan)
@@ -167,34 +178,134 @@ def king_screen_rows(chunks, n: int, n_pad: int, fam: np.ndarray,
         yield r0, hits
 
 
+def _exact_filter(fam, gi, gj, h, kinship_cutoff):
+    """The exact float64 kinship of candidate pairs (gi, gj) from their
+    integer counters h[2:7] (ss, hv, vh, IBS0, vv): same-family pairs take
+    the within-family estimator (genKING.cpp:634-638). Returns (keep,
+    kinship, IBS0 fraction)."""
+    ss, hv_, vh_, ib0, nv = (h[k].astype(np.float64) for k in range(2, 7))
+    same = (fam[gi] == fam[gj]) & (fam[gj] >= 0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        kin = np.where(same, 0.5 - ss / (2.0 * (hv_ + vh_)),
+                       0.5 - ss / (4.0 * np.minimum(hv_, vh_)))
+        ibs0f = np.where(nv > 0, ib0 / nv, np.nan)
+    keep = np.nan_to_num(kin, nan=-np.inf) >= kinship_cutoff
+    return keep, kin, ibs0f
+
+
+def _selection(id1, id2, ibs0_v, kin_v):
+    """The snpgdsIBDSelection-shaped dict of the kept pairs' pieces."""
+    return {"ID1": np.concatenate(id1) if id1 else np.array([], object),
+            "ID2": np.concatenate(id2) if id2 else np.array([], object),
+            "IBS0": np.concatenate(ibs0_v) if ibs0_v else np.array([]),
+            "kinship": np.concatenate(kin_v) if kin_v else np.array([])}
+
+
 def select_pairs(sample_id, fam: np.ndarray, strips, kinship_cutoff: float):
     """The exact float64 filter of the screen's candidates on the host,
     from their integer counters, and the snpgdsIBDSelection-shaped dict
-    (ID1 < ID2 in selection order, strips in order, each row-major).
-    Same-family pairs take the within-family estimator
-    (genKING.cpp:634-638)."""
+    (ID1 < ID2 in selection order, strips in order, each row-major)."""
     sid = np.asarray(sample_id, object)
     id1, id2, ibs0_v, kin_v = [], [], [], []
     for r0, h in strips:
         if h.shape[1] == 0:
             continue
-        ii, jj = h[0], h[1]
-        ss, hv_, vh_, ib0, nv = (h[k].astype(np.float64) for k in range(2, 7))
-        same = (fam[ii + r0] == fam[jj]) & (fam[jj] >= 0)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            kin = np.where(same, 0.5 - ss / (2.0 * (hv_ + vh_)),
-                           0.5 - ss / (4.0 * np.minimum(hv_, vh_)))
-        keep = np.nan_to_num(kin, nan=-np.inf) >= kinship_cutoff
-        with np.errstate(divide="ignore", invalid="ignore"):
-            ibs0f = np.where(nv > 0, ib0 / nv, np.nan)
-        id1.append(sid[jj[keep]])
-        id2.append(sid[ii[keep] + r0])
+        gi, gj = h[0] + r0, h[1]
+        keep, kin, ibs0f = _exact_filter(fam, gi, gj, h, kinship_cutoff)
+        id1.append(sid[gj[keep]])
+        id2.append(sid[gi[keep]])
         kin_v.append(kin[keep])
         ibs0_v.append(ibs0f[keep])
-    return {"ID1": np.concatenate(id1) if id1 else np.array([], object),
-            "ID2": np.concatenate(id2) if id2 else np.array([], object),
-            "IBS0": np.concatenate(ibs0_v) if ibs0_v else np.array([]),
-            "kinship": np.concatenate(kin_v) if kin_v else np.array([])}
+    return _selection(id1, id2, ibs0_v, kin_v)
+
+
+def king_screen_tiles(source, n: int, fam: np.ndarray, kinship_cutoff: float,
+                      rows=None, verbose: bool = False):
+    """The tile loop of the super-tile KING screen: over the upper tile
+    triangle of ``source`` (serpentine, ``ops.tiles._tile_walk``), the
+    five count grams of each tile (``gram5_tile``, one launch over every
+    SNP) and its screen (``king_screen_tile``; a diagonal tile screens its
+    strict lower triangle). ``rows``: the tile rows to cover (a tile_rank
+    share). Yields (r0, c0, nr, nc, hits) in walk order, hits a (7, h)
+    int64 numpy array of the tile's candidates in row-major tile order:
+    tile row, tile column, ss, hv, vh, IBS0, vv."""
+    from ..ops.tiles import _keyed_tile_stream
+
+    g = source.group
+    dev = source.device
+    fam_pad = np.full(source.n_groups * g, -1, np.int32)
+    fam_pad[:n] = fam
+    fam_d = torch.from_numpy(fam_pad).to(dev)
+    carry = torch.empty((5, g, g), dtype=torch.int32, device=dev)
+    for _key, (i, j, r0, c0, nr, nc, payload) in _keyed_tile_stream(
+            source, n, rows=rows):
+        slab_i, slab_j = payload
+        payload = None
+        carry.zero_()
+        gram5_tile(slab_i.view(-1, g // 4), slab_j.view(-1, g // 4), carry)
+        slab_i = slab_j = None
+        hits = king_screen_tile(carry, fam_d[i * g:(i + 1) * g],
+                                fam_d[j * g:(j + 1) * g], r0 - c0, i == j,
+                                float(kinship_cutoff))
+        hits = hits.cpu().numpy().astype(np.int64)
+        if verbose:
+            print(f"KING screen tile ({i},{j}): {hits.shape[1]} "
+                  "candidates", flush=True)
+        yield r0, c0, nr, nc, hits
+
+
+def select_tile_pairs(sample_id, fam: np.ndarray, tiles,
+                      kinship_cutoff: float):
+    """The exact float64 filter of the tile screen's candidates and the
+    snpgdsIBDSelection-shaped dict, in the tiles' order (row-major within
+    each). ID1 is the smaller selection index of a pair: a diagonal tile's
+    hits have row > column, an off-diagonal tile's row < column."""
+    sid = np.asarray(sample_id, object)
+    id1, id2, ibs0_v, kin_v = [], [], [], []
+    for r0, c0, nr, nc, h in tiles:
+        # padding rows and columns decode missing and never hit; the bound
+        # check mirrors the JAX package's
+        h = h[:, (h[0] < nr) & (h[1] < nc)]
+        if h.shape[1] == 0:
+            continue
+        gi, gj = h[0] + r0, h[1] + c0
+        keep, kin, ibs0f = _exact_filter(fam, gi, gj, h, kinship_cutoff)
+        id1.append(sid[np.minimum(gi, gj)[keep]])
+        id2.append(sid[np.maximum(gi, gj)[keep]])
+        kin_v.append(kin[keep])
+        ibs0_v.append(ibs0f[keep])
+    return _selection(id1, id2, ibs0_v, kin_v)
+
+
+def _king_screen_tiles(ws, fam, kinship_cutoff, group, chunk, verbose,
+                       source=None, tile_rank=None, device=None):
+    """The super-tile KING screen (the JAX package's
+    models/king.py:_king_screen_tiles): the bounded-traffic route past the
+    slab-staging budget, where the strips would re-stream the selection
+    once per strip. Only each tile's compacted candidates leave the card.
+    tile_rank=(rank, world): screen this rank's weight-balanced tile-row
+    share and return its PARTIAL table; tiles partition the pairs
+    exactly, so concatenating every rank's table gives the full result
+    (no checkpoint needed: the hits are the whole output)."""
+    from ..ops.tiles import StoreSlabSource, auto_tile_group, rank_rows
+
+    n = ws.n_samp
+    if source is None:
+        dev = resolve_device(device)
+        if group is None:
+            # tile_rank: the conservative budget, so every rank derives
+            # the SAME grid (the partial tables partition the pairs only
+            # if the grids agree)
+            group = auto_tile_group(
+                ws.n_snp, n_samp=n,
+                bytes_per_cell=40 if tile_rank is not None else 20)
+        if chunk is None:
+            chunk = auto_chunk(ws.n_snp, dev)
+        source = StoreSlabSource(ws, group, chunk, device=dev)
+    rows = None if tile_rank is None else rank_rows(source.n_groups,
+                                                    *tile_rank)
+    tiles = king_screen_tiles(source, n, fam, kinship_cutoff, rows, verbose)
+    return select_tile_pairs(ws.sample_id, fam, tiles, kinship_cutoff)
 
 
 def king_ibd_selection(data, kinship_cutoff, sample_id=None, snp_id=None,
@@ -214,25 +325,39 @@ def king_ibd_selection(data, kinship_cutoff, sample_id=None, snp_id=None,
     (R/IBD.R:463), in the JAX package's order.
 
     hit_cap is accepted and cannot change the result: the screen compacts
-    each strip's candidates into a list of exactly their length on the
-    device (the JAX package's compact list and dense-bitmask fallback in
-    one kernel). tiles=False names this route; tiles=True, tile_devices=,
-    tile_rank= (the super-tile route, also taken by itself past the
-    slab-staging budget) and mesh= are not ported and raise
-    NotImplementedError. tile_group is read only by the super-tile route.
-    device: None = the CUDA card; "cpu" runs the plain versions."""
+    each strip's (or tile's) candidates into a list of exactly their
+    length on the device (the JAX package's compact list, cap retry and
+    dense-bitmask fallback in one kernel). tiles=False names the strip
+    route. tiles=True, or a selection past the slab-staging budget, takes
+    the super-tile route (tile_group= its sample group, default
+    ``auto_tile_group``), whose pairs come in tile order: serpentine over
+    tile rows, row-major within a tile. tile_rank=(rank, world) screens
+    one rank's weight-balanced tile-row share and returns its PARTIAL
+    table (concatenating every rank's is the full result); it implies the
+    tiles and raises with tiles=False. mesh= and tile_devices= raise
+    NotImplementedError (ROADMAP item 12). device: None = the CUDA card;
+    "cpu" runs the plain versions."""
     if not np.isfinite(kinship_cutoff):
         raise ValueError("kinship_cutoff must be finite")
-    if tile_rank is not None and tiles is False:
-        raise ValueError("tile_rank= runs on the super-tile route; "
-                         "drop tiles=False (or the tile_rank=)")
-    refuse_routes("king_ibd_selection", mesh, tiles, tile_devices, tile_rank)
+    force_tiles = tile_rank is not None
+    if force_tiles:
+        from ..ops.tiles import parse_tile_rank
+
+        if tiles is False:
+            # the strips have no rank partition: honoring tiles=False would
+            # return the FULL table labelled as a rank's share
+            raise ValueError("tile_rank= runs on the super-tile route; "
+                             "drop tiles=False (or the tile_rank=)")
+        tile_rank = parse_tile_rank(tile_rank)
+    refuse_routes("king_ibd_selection", mesh, tile_devices)
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
     fam = _resolve_family(family_id, sample_id, ws)
-    if tiles is not False:
-        refuse_super_tiles("king_ibd_selection", ws)
     dev = resolve_device(device)
+    if tiles is not False and (tiles or force_tiles
+                               or past_staging_budget(ws)):
+        return _king_screen_tiles(ws, fam, kinship_cutoff, tile_group, chunk,
+                                  verbose, tile_rank=tile_rank, device=dev)
     sample_block, n_pad, chunk, chunks = _row_tile_setup(
         ws, sample_block, chunk, 128, 20, dev)
     strips = king_screen_rows(chunks, ws.n_samp, n_pad, fam, sample_block,

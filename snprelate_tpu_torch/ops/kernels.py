@@ -26,6 +26,14 @@ kernels its path went through.
 - ``king_screen`` (K6) replaces king.py's _strip_counters, strip_hits,
   strip_mask and gather_hits: the KING-robust screen of one strip, its
   hits compacted in row-major order
+- ``gram5_tile`` (K1t, ``csrc/gram4.cu``) replaces ops/tiles.py's
+  _basis_tile_scan_c: the five count grams of one super tile, its rows and
+  columns from two sample-group slabs
+- ``norm_gram_tile`` (K2b tile mode, ``csrc/norm_gram.cu``) replaces
+  _gcta_tile_scan_c (the GCTA division on the card) and the float grams of
+  _eigmix_tile_scan_c and _king_homo_tile_scan_c
+- ``king_screen_tile`` (K6t, ``csrc/king_screen.cu``) replaces king.py's
+  tile_hits: the KING-robust screen of one super tile
 """
 
 from __future__ import annotations
@@ -52,13 +60,22 @@ _ARGTYPES = {
     "rand_h": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P),
     "rand_yt": (_P, _I, _I, _P, _P, _P, _I, _P, _P),
     "het_count": (_P, _I, _I, _P, _P),
+    "gram5_tile": (_P, _P, _I, _I, _P),
+    "norm_gram_tile": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I),
+    "king_screen_tile_count": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _P),
+    "king_screen_tile_write": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _P,
+                               _P, _L),
 }
 
 
 # the C entries that live in another kernel's source
 _ENTRY_SOURCE = {"gram5_rows": "gram4", "norm_gram_rows": "norm_gram",
                  "king_screen_count": "king_screen",
-                 "king_screen_write": "king_screen"}
+                 "king_screen_write": "king_screen", "gram5_tile": "gram4",
+                 "norm_gram_tile": "norm_gram",
+                 "king_screen_tile": "king_screen",
+                 "king_screen_tile_count": "king_screen",
+                 "king_screen_tile_write": "king_screen"}
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -570,10 +587,202 @@ def king_screen(carry: torch.Tensor, fam: torch.Tensor, row0: int,
 
 king_screen.launches = 0
 
+# ----------------------------------------------------------- K1t gram5_tile
+
+def _check_slabs(slab_i: torch.Tensor, slab_j: torch.Tensor):
+    """(S, B) of two packed sample-group slabs (S, g/4) of one super tile,
+    after checking both."""
+    S, B = _check_packed(slab_i)
+    if tuple(slab_j.shape) != (S, B):
+        raise ValueError(f"slab_j: expected shape {(S, B)}, got "
+                         f"{tuple(slab_j.shape)}")
+    _check_packed(slab_j)
+    if slab_j.device != slab_i.device:
+        raise ValueError(f"slab_j: on {slab_j.device}, expected "
+                         f"{slab_i.device}")
+    return S, B
+
+
+def gram5_tile_plain(slab_i: torch.Tensor, slab_j: torch.Tensor,
+                     carry: torch.Tensor) -> None:
+    """Plain version of :func:`gram5_tile`: decode, basis, five grams."""
+    vi, hi, di = genotype_basis(decode2bit(slab_i))
+    vj, hj, dj = genotype_basis(decode2bit(slab_j))
+    for k, (x, y) in enumerate(((vi, vj), (hi, hj), (di, dj), (hi, vj),
+                                (vi, hj))):
+        carry[k] += _gram(x, y).to(torch.int32)
+
+
+def gram5_tile(slab_i: torch.Tensor, slab_j: torch.Tensor,
+               carry: torch.Tensor) -> None:
+    """carry (5, g, g) int32 += Vi'Vj, Hi'Hj, Di'Dj, Hi'Vj, Vi'Hj of one
+    super tile, updated in place: the rows from the packed slab_i, the
+    columns from slab_j, both (S, g/4) over the same S SNPs (the same
+    tensor on a diagonal tile). One launch covers all S SNPs; the int32
+    sums are exact below 2^31 SNPs (the engines' guard_count_snps)."""
+    S, B = _check_slabs(slab_i, slab_j)
+    _check(carry, "carry", torch.int32, (5, 4 * B, 4 * B), slab_i.device)
+    if not slab_i.is_cuda:
+        return gram5_tile_plain(slab_i, slab_j, carry)
+    _launch("gram5_tile", slab_i.device, slab_i.data_ptr(), slab_j.data_ptr(),
+            S, B, carry.data_ptr())
+    gram5_tile.launches += 1
+
+
+gram5_tile.launches = 0
+
+
+# ------------------------------------------------ K2b tile mode norm_gram_tile
+
+# SNPs per launch of the tile mode: its float32 count sums are exact below
+# 2^24 (tests patch this to split a toy tile).
+TILE_LAUNCH_SNPS = (1 << 24) - 1
+
+
+def tile_launch_ranges(S: int):
+    """The SNP ranges [s0, s1) of the tile mode's launches over S SNPs,
+    each below 2^24 (``TILE_LAUNCH_SNPS``); the division runs on the
+    last."""
+    return [(s0, min(S, s0 + TILE_LAUNCH_SNPS))
+            for s0 in range(0, max(S, 1), TILE_LAUNCH_SNPS)]
+
+
+def norm_gram_tile_plain(slab_i, slab_j, avg, scale, carry, poly=None,
+                         vcarry=None, indicator=False, divide=False):
+    """Plain version of :func:`norm_gram_tile`, in float64."""
+    xi, vi = _norm_block(slab_i, avg, scale, indicator)
+    xj, vj = _norm_block(slab_j, avg, scale, indicator)
+    carry += xi.T @ xj
+    if vcarry is not None:
+        po = poly[:, None]
+        vcarry += _gram(vi & po, vj & po).to(torch.int32)
+        if divide:
+            carry.copy_(carry / (2.0 * vcarry.double()))
+
+
+def norm_gram_tile(slab_i: torch.Tensor, slab_j: torch.Tensor,
+                   avg: torch.Tensor, scale: torch.Tensor,
+                   carry: torch.Tensor, poly: torch.Tensor | None = None,
+                   vcarry: torch.Tensor | None = None,
+                   indicator: bool = False, divide: bool = False) -> None:
+    """The tile mode of :func:`norm_gram`: carry (g, g) float64 += X_i'X_j
+    of one super tile, X_i from the packed slab_i (rows) and X_j from
+    slab_j (columns), both (S, g/4) over the same S SNPs with their
+    per-SNP avg and scale (S,); with vcarry (g, g) int32 (GCTA) also the
+    count gram of valid-and-polymorphic calls. divide (needs vcarry) then
+    replaces carry by carry / (2 vcarry) entrywise on the card, the GCTA
+    GRM tile (0/0 NaN and x/0 inf, as in float64 on the host). Tiles past
+    2^24 SNPs run as several launches, the division on the last."""
+    S, B = _check_slabs(slab_i, slab_j)
+    dev, g = slab_i.device, 4 * B
+    _check(avg, "avg", torch.float64, (S,), dev)
+    _check(scale, "scale", torch.float64, (S,), dev)
+    _check(carry, "carry", torch.float64, (g, g), dev)
+    if vcarry is not None:
+        if poly is None:
+            raise ValueError("norm_gram_tile: a count carry needs poly")
+        if indicator:
+            raise ValueError("norm_gram_tile: no count carry in indicator "
+                             "mode")
+        _check(poly, "poly", torch.bool, (S,), dev)
+        _check(vcarry, "vcarry", torch.int32, (g, g), dev)
+    elif divide:
+        raise ValueError("norm_gram_tile: divide needs the count carry")
+    if not slab_i.is_cuda:
+        return norm_gram_tile_plain(slab_i, slab_j, avg, scale, carry, poly,
+                                    vcarry, indicator, divide)
+    gcta = vcarry is not None
+    for s0, s1 in tile_launch_ranges(S):
+        _launch("norm_gram_tile", dev, slab_i[s0:s1].data_ptr(),
+                slab_j[s0:s1].data_ptr(), s1 - s0, B, avg[s0:s1].data_ptr(),
+                scale[s0:s1].data_ptr(),
+                poly[s0:s1].data_ptr() if gcta else None,
+                int(bool(indicator)), carry.data_ptr(),
+                vcarry.data_ptr() if gcta else None,
+                int(bool(divide) and s1 == S))
+        norm_gram_tile.launches += 1
+
+
+norm_gram_tile.launches = 0
+
+
+# ------------------------------------------------------ K6t king_screen_tile
+
+def king_screen_tile_plain(counters: torch.Tensor, fam_rows: torch.Tensor,
+                           fam_cols: torch.Tensor, row_off: int, diag: bool,
+                           cutoff: float) -> torch.Tensor:
+    """Plain version of :func:`king_screen_tile`: integer torch code on
+    the whole tile, the same float32 pre-test, ``nonzero`` (row-major)."""
+    vv, hh, dd, hv, vh = counters.unbind(0)
+    g = vv.shape[0]
+    homo = vv + hh - hv - vh
+    ibs0 = (homo - dd) // 2  # even and >= 0: exact
+    ibs2 = (homo + dd) // 2 + hh
+    ss = vv - ibs2 + 3 * ibs0  # IBS1 + 4 IBS0, IBS1 = vv - IBS0 - IBS2
+    del homo, ibs2
+    famr = fam_rows[:, None]
+    same = (famr == fam_cols[None, :]) & (famr >= 0)
+    m = torch.where(same, hv + vh, torch.minimum(hv, vh))
+    tb, sb, tw, sw = (torch.tensor(x, device=counters.device)
+                      for x in _screen_thresholds(cutoff))
+    mf = m.float()
+    bound = torch.where(same, tw, tb) * mf + torch.where(same, sw, sb) * mf
+    bound += 1.0
+    del same, mf
+    hit = (m > 0) & (ss.float() <= bound)
+    del m, bound
+    if diag:
+        ar = torch.arange(g, device=counters.device)
+        hit &= (row_off + ar)[:, None] > ar[None, :]
+    ii, jj = hit.nonzero(as_tuple=True)
+    return torch.stack([ii.to(torch.int32), jj.to(torch.int32)]
+                       + [c[ii, jj] for c in (ss, hv, vh, ibs0, vv)])
+
+
+def king_screen_tile(counters: torch.Tensor, fam_rows: torch.Tensor,
+                     fam_cols: torch.Tensor, row_off: int, diag: bool,
+                     cutoff: float) -> torch.Tensor:
+    """The KING-robust screen of one super tile: counters (5, g, g) int32,
+    the tile grams (vv, hh, dd, hv, vh) of :func:`gram5_tile`, fam_rows
+    and fam_cols (g,) int32 the family codes of its row and column samples
+    (-1: none). Tests every pair or, on a diagonal tile (diag), the pairs
+    (r, j) with row_off + r > j (row_off = r0 - c0 = 0: the strict lower
+    triangle), with the admit-only float32 pre-test of kinship >= cutoff,
+    and returns the hits as (7, hits) int32 in row-major tile order: tile
+    row, tile column, then ss = IBS1 + 4 IBS0, hv, vh, IBS0 and vv."""
+    if counters.dim() != 3 or counters.shape[0] != 5:
+        raise ValueError("counters: expected the (5, g, g) tile grams")
+    g = counters.shape[1]
+    dev = counters.device
+    _check(counters, "counters", torch.int32, (5, g, g), dev)
+    _check(fam_rows, "fam_rows", torch.int32, (g,), dev)
+    _check(fam_cols, "fam_cols", torch.int32, (g,), dev)
+    if not counters.is_cuda:
+        return king_screen_tile_plain(counters, fam_rows, fam_cols, row_off,
+                                      diag, cutoff)
+    thr = [float(x) for x in _screen_thresholds(cutoff)]
+    counts = torch.empty(g, dtype=torch.int32, device=dev)
+    args = (counters.data_ptr(), g, fam_rows.data_ptr(), fam_cols.data_ptr(),
+            int(row_off), int(bool(diag)), *thr)
+    _launch("king_screen_tile_count", dev, *args, counts.data_ptr())
+    offsets = torch.zeros(g + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(counts, 0, dtype=torch.int64)  # the scan
+    total = int(offsets[-1])
+    out = torch.empty((7, total), dtype=torch.int32, device=dev)
+    _launch("king_screen_tile_write", dev, *args, offsets.data_ptr(),
+            out.data_ptr(), total)
+    king_screen_tile.launches += 1
+    return out
+
+
+king_screen_tile.launches = 0
+
 # the wrappers by kernel name, for code that resets or reads the counts
 KERNELS = {"gram4": gram4, "snp_stats": snp_stats, "norm_gram": norm_gram,
            "rand_h": rand_h, "rand_yt": rand_yt, "het_count": het_count,
            "gram5_rows": gram5_rows, "norm_gram_rows": norm_gram_rows,
-           "king_screen": king_screen}
+           "king_screen": king_screen, "gram5_tile": gram5_tile,
+           "norm_gram_tile": norm_gram_tile,
+           "king_screen_tile": king_screen_tile}
 # the source (csrc/<source>.cu) of each kernel
 SOURCES = {name: _ENTRY_SOURCE.get(name, name) for name in KERNELS}

@@ -28,11 +28,16 @@ device, or, past the JAX package's automatic thresholds or with
 ``gcta_parts_rows``, ``pca_cov_rows``, ``king_homo_rows``,
 ``eigmix_rows``): (B, N) strip carries, the chunks staged on the device
 once when they fit (``_stage_or_stream``) and re-streamed once per strip
-(``gram5_rows``, K1r, and ``norm_gram_rows``, K2b's strip mode). The
-super-tile and mesh routes are not ported: a call that would take one
-raises ``NotImplementedError`` (``refuse_routes``). Checkpoints use the
-JAX package's layouts and meta tuples (npz per chunk on the full square,
-one .npy per strip on the rows), so either package resumes the other's
+(``gram5_rows``, K1r, and ``norm_gram_rows``, K2b's strip mode). Past the
+slab-staging budget (``SLAB_STAGING_BUDGET``), with ``tile_rank=`` or over
+an existing tile-grid checkpoint, the count, KING-homo and EIGMIX engines
+take the super-tile route of ``ops/tiles.py`` instead (``gram5_tile``,
+K1t, and ``norm_gram_tile``, K2b's tile mode), as the JAX package does.
+The mesh routes (``mesh=``) and whole tiles on several cards
+(``tile_devices=``) are not ported: they raise ``NotImplementedError``
+(``refuse_routes``). Checkpoints use the JAX package's layouts and meta
+tuples (npz per chunk on the full square, one .npy per strip on the rows,
+one .npz per tile on the tiles), so either package resumes the other's
 run.
 """
 
@@ -55,65 +60,30 @@ INT32_COUNT_CEILING = 2**31 - 1
 
 # Packed bytes of a selection that the row-strip engines stage on the
 # device at once (the JAX package's HBM slab-staging budget); past it the
-# JAX package takes its super-tile route instead, which is not ported.
+# count and GRM analyses take the super-tile route of ops/tiles.py.
 SLAB_STAGING_BUDGET = 2_000_000_000
 
 
-def refuse_routes(what: str, mesh=None, tiles=None, tile_devices=None,
-                  tile_rank=None) -> None:
+def past_staging_budget(ws) -> bool:
+    """Whether a selection's packed bytes exceed ``SLAB_STAGING_BUDGET``,
+    where the JAX package's automatic switch leaves the row strips for its
+    super-tile route (pairwise.py:478, models/grm.py:120, king.py:394)."""
+    return ws.n_snp * (-(-ws.n_samp // 4)) > SLAB_STAGING_BUDGET
+
+
+def refuse_routes(what: str, mesh=None, tile_devices=None) -> None:
     """Raise NotImplementedError for a route argument that selects a
-    route the port does not have: mesh= (the sharded routes, ROADMAP item
-    12), tiles=True, tile_devices= and tile_rank= (the super-tile routes,
-    item 7). tiles=False names the row-strip route and is accepted."""
+    route the port does not have: mesh= (the sharded routes) and
+    tile_devices= (whole super tiles scheduled over several cards), both
+    ROADMAP section 1 item 12."""
     if mesh is not None:
         raise NotImplementedError(
             f"{what}: mesh= (the sharded routes) is not ported yet "
             "(ROADMAP section 1 item 12)")
-    if tiles or tile_devices is not None or tile_rank is not None:
+    if tile_devices is not None:
         raise NotImplementedError(
-            f"{what}: the super-tile route (tiles=True, tile_devices=, "
-            "tile_rank=) is not ported yet (ROADMAP section 1 item 7)")
-
-
-def refuse_super_tiles(what: str, ws) -> None:
-    """Raise NotImplementedError where the JAX package's automatic switch
-    takes its super-tile route (a row-strip selection past
-    ``SLAB_STAGING_BUDGET``, pairwise.py:478; ROADMAP item 7)."""
-    if ws.n_snp * (-(-ws.n_samp // 4)) > SLAB_STAGING_BUDGET:
-        raise NotImplementedError(
-            f"{what}: {ws.n_snp} SNPs x {ws.n_samp} samples exceed the "
-            f"{SLAB_STAGING_BUDGET}-byte slab-staging budget, where the JAX "
-            "package switches to its super-tile route, which is not ported "
-            "yet (ROADMAP section 1 item 7)")
-
-
-def refuse_grid_checkpoint(what: str, ws, checkpoint, tag: int) -> None:
-    """Raise NotImplementedError for a super-tile grid checkpoint (meta
-    ``tag``), which the JAX package assembles or resumes on its super-tile
-    route (ROADMAP item 7)."""
-    if checkpoint and probe_grid_meta(checkpoint, tag, ws.n_snp,
-                                      ws.n_samp) is not None:
-        raise NotImplementedError(
-            f"{what}: {checkpoint} is a super-tile grid checkpoint; "
-            "assembling it needs the super-tile route, which is not ported "
-            "yet (ROADMAP section 1 item 7)")
-
-
-def probe_grid_meta(checkpoint, tag: int, n_snp: int, n_samp: int):
-    """(group, chunk) of an existing super-tile grid checkpoint meta
-    matching (tag, n_snp, n_samp), else None (the JAX package's
-    ops/tiles.py:probe_grid_meta)."""
-    mfn = str(checkpoint) + ".meta.npy"
-    if not os.path.exists(mfn):
-        return None
-    try:
-        m = np.load(mfn)
-    except (OSError, ValueError):
-        return None
-    if m.size >= 5 and int(m[0]) == tag and int(m[1]) == int(n_snp) \
-            and int(m[2]) == int(n_samp):
-        return int(m[3]), int(m[4])
-    return None
+            f"{what}: tile_devices= (whole tiles over several cards) is not "
+            "ported yet (ROADMAP section 1 item 12)")
 
 
 def _count_ceiling() -> int:
@@ -344,18 +314,39 @@ def pair_counts(ws, chunk=None, pad_to: int = 128, checkpoint=None,
                 tile_rank=None, device=None) -> PairCounts:
     """Run the integer pairwise engine over a Workspace selection.
     checkpoint=path saves the carries every ``checkpoint_every`` chunks
-    (full square) or every strip (rows) and a rerun resumes. Past
-    16 n_pad^2 > 6e9 bytes of carries (the JAX package's threshold), or
-    with sample_block=, it assembles the counts from row strips
-    (``basis_gram_rows``)."""
-    refuse_routes("pair_counts", mesh, None, tile_devices, tile_rank)
-    refuse_grid_checkpoint("pair_counts", ws, checkpoint, 75)
+    (full square), every strip (rows) or every tile (super tiles) and a
+    rerun resumes. Past 16 n_pad^2 > 6e9 bytes of carries (the JAX
+    package's threshold), or with sample_block=, it assembles the counts
+    from row strips (``basis_gram_rows``), and past the slab-staging
+    budget from super tiles (``ops.tiles.pair_counts_tiled``).
+    tile_rank=(rank, world) computes only this rank's tile rows into
+    checkpoint= and returns None; a checkpoint holding a tile grid (meta
+    tag 75) is assembled or resumed on the tiles."""
+    refuse_routes("pair_counts", mesh, tile_devices)
     dev = resolve_device(device)
+    if tile_rank is not None:
+        from .tiles import pair_counts_tiled
+
+        # the grid resolves inside (rank-aware budget, or an existing
+        # checkpoint's grid, so an assembly run never wipes rank tiles)
+        return pair_counts_tiled(ws, chunk=chunk, checkpoint=checkpoint,
+                                 verbose=verbose, tile_rank=tile_rank,
+                                 device=dev)
+    if checkpoint:
+        from .tiles import pair_counts_tiled, probe_grid_meta
+
+        if probe_grid_meta(checkpoint, 75, ws.n_snp,
+                           ws.n_samp) is not None:
+            return pair_counts_tiled(ws, chunk=chunk, checkpoint=checkpoint,
+                                     verbose=verbose, device=dev)
     n_pad = -(-ws.n_samp // pad_to) * pad_to
     if sample_block is None and 16.0 * n_pad * n_pad > 6e9:
         sample_block = 4096
-    if sample_block:
-        refuse_super_tiles("pair_counts", ws)
+    if sample_block and past_staging_budget(ws):
+        from .tiles import pair_counts_tiled
+
+        return pair_counts_tiled(ws, chunk=chunk, checkpoint=checkpoint,
+                                 verbose=verbose, device=dev)
     if chunk is None:
         chunk = auto_chunk(ws.n_snp, dev)
     if sample_block:
@@ -481,7 +472,8 @@ def _stage_or_stream(ws, chunk, n_pad, device):
     """Returns a callable giving the device packed chunks: all staged on
     the device when the selection's packed bytes are at most
     ``SLAB_STAGING_BUDGET`` (so strips do not re-read and re-send them),
-    else streamed anew on each call."""
+    else streamed anew on each call (a strip route the caller chose,
+    tiles=False)."""
     if ws.n_snp * (n_pad // 4) <= SLAB_STAGING_BUDGET:
         staged = list(_stream(ws, chunk, n_pad, device))
         return lambda: staged
@@ -740,19 +732,36 @@ def king_homo_counts(ws, chunk=None, pad_to: int = 128,
     w = p(1-p), p = sum/(2 num) (0 when num = 0), as two indicator-mode
     ``norm_gram`` products with per-SNP factors sqrt(w) and w. Past
     24 n_pad^2 > 6e9 bytes of carries (the JAX package's threshold), or
-    with sample_block=, assembled from row strips (``king_homo_rows``).
-    checkpoint= warns and is not honored, as on the JAX package's
-    in-HBM and row routes."""
+    with sample_block=, assembled from row strips (``king_homo_rows``),
+    and past the slab-staging budget, with tile_rank= (returns None) or
+    over a tile-grid checkpoint (tag 77) from super tiles
+    (``ops.tiles.king_homo_parts_tiled``). Elsewhere checkpoint= warns
+    and is not honored, as on the JAX package's in-HBM and row routes."""
     guard_count_snps(ws.n_snp, "KING-homo counts")
-    refuse_routes("king_homo_counts", mesh, None, tile_devices, tile_rank)
-    refuse_grid_checkpoint("king_homo_counts", ws, checkpoint, 77)
+    refuse_routes("king_homo_counts", mesh, tile_devices)
+    dev = resolve_device(device)
+    if tile_rank is not None:
+        from .tiles import king_homo_parts_tiled
+
+        return king_homo_parts_tiled(ws, chunk=chunk, verbose=verbose,
+                                     tile_rank=tile_rank,
+                                     checkpoint=checkpoint, device=dev)
+    if checkpoint:
+        from .tiles import king_homo_parts_tiled, probe_grid_meta
+
+        if probe_grid_meta(checkpoint, 77, ws.n_snp,
+                           ws.n_samp) is not None:
+            return king_homo_parts_tiled(ws, chunk=chunk, verbose=verbose,
+                                         checkpoint=checkpoint, device=dev)
     n_pad_blk, _nblk = _pad_blocks(ws.n_samp, pad_to)
     if sample_block is None and 24.0 * n_pad_blk * n_pad_blk > 6e9:
         sample_block = 4096
-    if sample_block:
-        refuse_super_tiles("king_homo_counts", ws)
+    if sample_block and past_staging_budget(ws):
+        from .tiles import king_homo_parts_tiled
+
+        return king_homo_parts_tiled(ws, chunk=chunk, verbose=verbose,
+                                     checkpoint=checkpoint, device=dev)
     _warn_checkpoint(checkpoint, "KING-homo")
-    dev = resolve_device(device)
     n = ws.n_samp
     if sample_block:
         B = np.empty((5, n, n), np.int64)
@@ -792,18 +801,35 @@ def eigmix_parts(ws, chunk=None, pad_to: int = 128, verbose: bool = False,
     scale), d = 4p(1-p) with p = avg/2 (indicator-mode ``norm_gram`` with
     sqrt(d)), het the per-sample heterozygote count (``het_count``). Past
     5 n_pad^2 > 6e9 (the JAX package's threshold, pairwise.py:1343), or
-    with sample_block=, assembled from row strips (``eigmix_rows``).
-    checkpoint= warns and is not honored, as on the JAX package's in-HBM
-    and row routes."""
-    refuse_routes("eigmix_parts", mesh, None, tile_devices, tile_rank)
-    refuse_grid_checkpoint("eigmix_parts", ws, checkpoint, 76)
+    with sample_block=, assembled from row strips (``eigmix_rows``), and
+    past the slab-staging budget, with tile_rank= (returns None) or over
+    a tile-grid checkpoint (tag 76) from super tiles
+    (``ops.tiles.eigmix_parts_tiled``). Elsewhere checkpoint= warns and is
+    not honored, as on the JAX package's in-HBM and row routes."""
+    refuse_routes("eigmix_parts", mesh, tile_devices)
+    dev = resolve_device(device)
+    if tile_rank is not None:
+        from .tiles import eigmix_parts_tiled
+
+        return eigmix_parts_tiled(ws, chunk=chunk, verbose=verbose,
+                                  tile_rank=tile_rank, checkpoint=checkpoint,
+                                  device=dev)
+    if checkpoint:
+        from .tiles import eigmix_parts_tiled, probe_grid_meta
+
+        if probe_grid_meta(checkpoint, 76, ws.n_snp,
+                           ws.n_samp) is not None:
+            return eigmix_parts_tiled(ws, chunk=chunk, verbose=verbose,
+                                      checkpoint=checkpoint, device=dev)
     n_pad_blk, _nblk = _pad_blocks(ws.n_samp, pad_to)
     if sample_block is None and 5.0 * n_pad_blk * n_pad_blk > 6e9:
         sample_block = 4096
-    if sample_block:
-        refuse_super_tiles("eigmix_parts", ws)
+    if sample_block and past_staging_budget(ws):
+        from .tiles import eigmix_parts_tiled
+
+        return eigmix_parts_tiled(ws, chunk=chunk, verbose=verbose,
+                                  checkpoint=checkpoint, device=dev)
     _warn_checkpoint(checkpoint, "EIGMIX")
-    dev = resolve_device(device)
     n = ws.n_samp
     if sample_block:
         num = np.empty((n, n))

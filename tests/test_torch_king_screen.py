@@ -148,20 +148,29 @@ def test_king_screen_hits_are_the_exact_candidates(n, cutoff):
     {"tiles": True}, {"tile_rank": (0, 2)}, {"mesh": object()},
     {"tile_devices": [0, 1]}, {"auto": True}])
 def test_selection_refuses_unported_routes(kw, monkeypatch):
+    """mesh= and tile_devices= raise NotImplementedError naming ROADMAP
+    item 12; the super-tile route (tiles=True, tile_rank=, and the switch
+    past the slab budget) is ported and returns the screen (equal to the
+    JAX package's in test_torch_tiles.py); tile_rank with tiles=False
+    raises."""
     import snprelate_tpu_torch as tsr
     from snprelate_tpu_torch.ops import pairwise as tpw
 
     _, tdata = _data(129)
     kw = dict(kw)
+    strips = tsr.king_ibd_selection(tdata, CUT, tiles=False, device="cpu")
     if kw.pop("auto", False):  # past the slab budget: the super-tile switch
         monkeypatch.setattr(tpw, "SLAB_STAGING_BUDGET", 1000)
-        item = "item 7"
         # tiles=False names the strip route and stays on it
-        tsr.king_ibd_selection(tdata, CUT, tiles=False, device="cpu")
+        _same_dict(tsr.king_ibd_selection(tdata, CUT, tiles=False,
+                                          device="cpu"), strips)
+    if "mesh" in kw or "tile_devices" in kw:
+        with pytest.raises(NotImplementedError, match="item 12"):
+            tsr.king_ibd_selection(tdata, CUT, device="cpu", **kw)
     else:
-        item = "item 12" if "mesh" in kw else "item 7"
-    with pytest.raises(NotImplementedError, match=item):
-        tsr.king_ibd_selection(tdata, CUT, device="cpu", **kw)
+        got = tsr.king_ibd_selection(tdata, CUT, device="cpu", **kw)
+        if "tile_rank" not in kw:  # one tile: the strips' order too
+            _same_dict(got, strips)
     with pytest.raises(ValueError, match="tiles=False"):
         tsr.king_ibd_selection(tdata, CUT, tiles=False, tile_rank=(0, 2),
                                device="cpu")

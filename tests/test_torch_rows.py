@@ -331,12 +331,17 @@ ROUTES = [
 
 @pytest.mark.parametrize("fn,kw,item", ROUTES)
 def test_unported_routes_raise(fn, kw, item, monkeypatch, tmp_path):
-    """A route argument that selects a route the port does not have, the
-    automatic super-tile switch (forced with a small slab budget) and a
-    super-tile grid checkpoint each raise NotImplementedError naming the
-    ROADMAP item; nothing falls back to another route."""
+    """mesh= and tile_devices= name routes the port does not have: they
+    raise NotImplementedError naming ROADMAP item 12 and fall back to no
+    other route. The cases that named item 7 (tile_rank=, tiles=True, the
+    automatic super-tile switch forced with a small slab budget, a
+    super-tile grid checkpoint) are ported now: each takes the tile route
+    (the walk runs, or a tile_rank without checkpoint= is refused as in
+    the JAX package) instead of raising; their results are held against
+    the JAX package's in test_torch_tiles.py."""
     import snprelate_tpu_torch as tsr
     from snprelate_tpu_torch.ops import pairwise as tpw
+    from snprelate_tpu_torch.ops import tiles as tt
 
     _, tdata = datasets(129, n_snp=N_SNP)
     kw = dict(kw)
@@ -354,8 +359,20 @@ def test_unported_routes_raise(fn, kw, item, monkeypatch, tmp_path):
         np.save(ckpt + ".meta.npy", np.array([kw["checkpoint"], ws.n_snp,
                                               ws.n_samp, 128, 256]))
         kw["checkpoint"] = ckpt
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(tsr, fn)(tdata, device="cpu", **kw)
+    if item == "item 12" or "tile_devices" in kw:
+        with pytest.raises(NotImplementedError, match="item 12"):
+            getattr(tsr, fn)(tdata, device="cpu", **kw)
+        return
+    if "tile_rank" in kw:
+        with pytest.raises(ValueError, match="needs checkpoint"):
+            getattr(tsr, fn)(tdata, device="cpu", **kw)
+        kw["checkpoint"] = str(tmp_path / "rank")
+    walks = []
+    walk = tt._tile_walk
+    monkeypatch.setattr(tt, "_tile_walk",
+                        lambda *a, **k: walks.append(1) or walk(*a, **k))
+    res = getattr(tsr, fn)(tdata, device="cpu", **kw)
+    assert walks and (res is None) == ("tile_rank" in kw)
 
 
 def test_strip_wrappers_check_their_inputs():
