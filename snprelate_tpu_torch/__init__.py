@@ -3,12 +3,16 @@ NVIDIA H100: relatedness and PCA from packed 2-bit genotypes on
 hand-written CUDA kernels: IBS, KING (robust and homo), dissimilarity,
 PLINK method-of-moments IBD, individual beta, GRM (GCTA, Eigenstrat, Corr,
 EIGMIX, IndivBeta), EIGMIX, exact and randomized PCA, and the streaming
-KING-robust relatedness screen (``king_ibd_selection``). The count and GRM
-analyses take ``sample_block=`` for the row-strip route, which keeps
-device memory O(block x N), and past the slab-staging budget (or with
-``tiles=True`` / ``tile_rank=``) the super-tile route of ``ops/tiles.py``,
-which also bounds host -> device traffic and splits the tiles over
-independent processes.
+KING-robust relatedness screen (``king_ibd_selection``), and the PCA
+workflow past the slab budget: slab-wise and rank-partitioned randomized
+PCA (``models/pca_randomized.randomized_pca_slabs``,
+``models/pca_rank``), SNP-PC correlations, SNP loadings and sample
+projection (``pca_corr``, ``pca_snp_loading``, ``pca_samp_loading``).
+The count and GRM analyses take ``sample_block=`` for the row-strip route,
+which keeps device memory O(block x N), and past the slab-staging budget
+(or with ``tiles=True`` / ``tile_rank=``) the super-tile route of
+``ops/tiles.py``, which also bounds host -> device traffic and splits the
+tiles over independent processes.
 
 Public functions mirror the JAX package's names and ``snpgds*`` aliases
 and take ``device=``: ``None`` means the CUDA card and raises when there is
@@ -23,6 +27,7 @@ from .models.ibs import ibs, ibs_num
 from .models.king import ibd_king, king_ibd_selection
 from .models.grm import grm
 from .models.pca import pca
+from .models.pca_ext import pca_corr, pca_snp_loading, pca_samp_loading
 from .models.eigmix import eigmix
 from .models.diss import diss
 from .models.ibd_mom import ibd_mom
@@ -35,6 +40,9 @@ snpgdsIBSNum = ibs_num
 snpgdsIBDKING = ibd_king
 snpgdsGRM = grm
 snpgdsPCA = pca
+snpgdsPCACorr = pca_corr
+snpgdsPCASNPLoading = pca_snp_loading
+snpgdsPCASampLoading = pca_samp_loading
 snpgdsEIGMIX = eigmix
 snpgdsDiss = diss
 snpgdsIBDMoM = ibd_mom

@@ -13,6 +13,13 @@ The normalized block Y never exists in device memory.
 
 This is the PCA route for large cohorts: exact PCA keeps an n x n float64
 covariance on the device, which at 100,000 samples no longer fits.
+
+Past the slab budget, ``randomized_pca_slabs`` runs the same iteration over
+the sample-group slabs of an ``ops/tiles.py`` slab source, with the
+per-SNP statistics of a first pass over all groups: H = Y G accumulates one
+group at a time (``rand_h`` on the flattened slab), G_next = Y' H and
+T' = Y' U_H one group of rows at a time (``rand_yt``). The data crosses to the
+device only as slab loads; H, G and T' stay on the device.
 """
 
 from __future__ import annotations
@@ -57,6 +64,27 @@ def _g0(seed, n: int, n_pad: int, aux_dim: int) -> np.ndarray:
     return g
 
 
+def _eigen_from_t(t_tr: torch.Tensor, eigen_cnt: int, n: int,
+                  trace_xtx: float):
+    """(eigenval, eigenvect, varprop, trace2) from T' (n_pad, hsize): the
+    SVD of T through the (hsize x hsize) Gram, sigma^2 = eig(T T'), right
+    singular vectors T' u_k / sigma_k (pca_randomized.py:269-292), and the
+    reference's eigval = (n-1) 2 sigma^2 / TraceXTX (R/PCA.R:80-88)."""
+    b = (t_tr.T @ t_tr).cpu().numpy()
+    w, u = np.linalg.eigh(b)
+    order = np.argsort(w)[::-1][:eigen_cnt]
+    sigma = np.sqrt(np.maximum(w[order], 0.0))
+    u_sig = u[:, order] / np.where(sigma > 0, sigma, 1.0)
+    eigenvect = (t_tr @ torch.from_numpy(
+        np.ascontiguousarray(u_sig)).to(t_tr.device)).cpu().numpy()[:n]
+    trace2 = 2.0 * trace_xtx
+    vp = np.full(n, np.nan)
+    k = min(len(w), n)
+    sig_all = np.sqrt(np.maximum(np.sort(w)[::-1][:k], 0.0))
+    vp[:k] = 2.0 * sig_all**2 / trace2
+    return (n - 1) * vp, eigenvect, vp, trace2
+
+
 def _result(ws, eigenval, eigenvect, vp, trace2):
     from .pca import PCAResult
 
@@ -97,7 +125,7 @@ def _randomized_pca_cached(ws, eigen_cnt, aux_dim, iter_num, seed, chunk,
 
     h_parts = []
     for it in range(iter_num + 1):
-        h = torch.empty((n_chunks * chunk, aux_dim), dtype=torch.float64,
+        h = torch.zeros((n_chunks * chunk, aux_dim), dtype=torch.float64,
                         device=dev)
         for i, st in enumerate(stats):
             rand_h(p_all[i], st[2], st[3], g_mat,
@@ -119,22 +147,7 @@ def _randomized_pca_cached(ws, eigen_cnt, aux_dim, iter_num, seed, chunk,
     for i, st in enumerate(stats):
         rand_yt(p_all[i], st[2], st[3], q[i * chunk:(i + 1) * chunk], t_tr)
 
-    # SVD of T via the (hsize x hsize) Gram: sigma^2 = eig(T T'), right
-    # singular vectors v_k = T' u_k / sigma_k (:269-292)
-    b = (t_tr.T @ t_tr).cpu().numpy()
-    w, u = np.linalg.eigh(b)
-    order = np.argsort(w)[::-1][:eigen_cnt]
-    sigma = np.sqrt(np.maximum(w[order], 0.0))
-    u_sig = u[:, order] / np.where(sigma > 0, sigma, 1.0)
-    eigenvect = (t_tr @ torch.from_numpy(
-        np.ascontiguousarray(u_sig)).to(dev)).cpu().numpy()[:n]
-
-    trace2 = 2.0 * trace_xtx
-    vp = np.full(n, np.nan)
-    k = min(len(w), n)
-    sig_all = np.sqrt(np.maximum(np.sort(w)[::-1][:k], 0.0))
-    vp[:k] = 2.0 * sig_all**2 / trace2
-    return _result(ws, (n - 1) * vp, eigenvect, vp, trace2)
+    return _result(ws, *_eigen_from_t(t_tr, eigen_cnt, n, trace_xtx))
 
 
 def _randomized_pca_streamed(ws, eigen_cnt, aux_dim, iter_num, seed, chunk,
@@ -164,7 +177,7 @@ def _randomized_pca_streamed(ws, eigen_cnt, aux_dim, iter_num, seed, chunk,
     for it in range(iter_num + 1):
         cols = slice(it * aux_dim, (it + 1) * aux_dim)
         for start, take, packed, avg, scale, y2 in chunks():
-            rand_h(packed, avg, scale, g_mat, hb)
+            rand_h(packed, avg, scale, g_mat, hb.zero_())
             H[start:start + take, cols] = hb[:take].cpu().numpy()
             if it == 0:
                 trace_xtx += float(y2.sum())
@@ -227,3 +240,105 @@ def randomized_pca(ws, eigen_cnt=16, aux_dim=None, iter_num=10, seed=None,
                                       seed, chunk, n_pad, dev, p_all=p_all)
     return _randomized_pca_streamed(ws, eigen_cnt, aux_dim, iter_num, seed,
                                     chunk, n_pad, dev)
+
+
+# --- slab-wise randomized PCA (pca_randomized.py:295-464): for cohorts
+# whose full-sample packed chunks exceed the card, the power iteration runs
+# over sample-group slabs of a tiles.py slab source.
+
+
+def _rand_scale(avg: np.ndarray) -> np.ndarray:
+    """The randomized-PCA scale 1/sqrt(2p(1-p)), 0 outside (0, 1), of
+    per-SNP means avg = 2p, in float64 (thread_lookup_y,
+    genPCA.cpp:501-528)."""
+    p = avg * 0.5
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.where((p > 0) & (p < 1), 1.0 / np.sqrt(2.0 * p * (1.0 - p)),
+                        0.0)
+
+
+def _sweep_h(source, avg, scale, g: torch.Tensor, y2=None) -> torch.Tensor:
+    """H = Y G (m, c) over every group of ``source`` (h_accum,
+    pca_randomized.py:307), each (n_chunks, chunk, g/4) slab flattened to
+    its (m, g/4) rows and dropped before the next one loads (:374-378);
+    with y2 (m,), also the per-SNP sums of y^2 (the trace terms)."""
+    group = source.group
+    h_all = torch.zeros((source.n_chunks * source.chunk, g.shape[1]),
+                        dtype=torch.float64, device=g.device)
+    slab = None
+    for j in range(source.n_groups):
+        slab = None
+        slab = source.slab(j)
+        rand_h(slab.view(-1, slab.shape[-1]), avg, scale,
+               g[j * group:(j + 1) * group], h_all, y2)
+    return h_all
+
+
+def _sweep_yt(source, avg, scale, m_all: torch.Tensor) -> torch.Tensor:
+    """Y' M (n_pad, c) over every group of ``source``, one group's rows at
+    a time (g_accum and t_accum, pca_randomized.py:325,415), each slab
+    dropped before the next one loads."""
+    group = source.group
+    out = torch.zeros((source.n_groups * group, m_all.shape[1]),
+                      dtype=torch.float64, device=m_all.device)
+    slab = None
+    for j in range(source.n_groups):
+        slab = None
+        slab = source.slab(j)
+        rand_yt(slab.view(-1, slab.shape[-1]), avg, scale, m_all,
+                out[j * group:(j + 1) * group])
+    return out
+
+
+def _source_device(source) -> torch.device:
+    return resolve_device(getattr(source, "device", None))
+
+
+def randomized_pca_slabs(source, n_samp, eigen_cnt=32, aux_dim=None,
+                         iter_num=4, seed=None, verbose=False):
+    """Randomized PCA (CRandomPCA, genPCA.cpp:472-803) over a slab source
+    (``ops/tiles.py``: ``StoreSlabSource``, ``DeviceSlabSource`` or any
+    object with its ``slab(j)`` contract): the biobank route where neither
+    the n x n covariance nor the full-sample packed chunks fit the card.
+    The scale is 1/sqrt(2p(1-p)) with the per-SNP statistics of a first
+    pass over all groups; G0 is drawn on the host from ``seed`` as the JAX
+    package draws it. Runs on the source's device. Returns a PCAResult with
+    the reference's eigval = (n-1) 2 sigma^2 / TraceXTX semantics
+    (R/PCA.R:80-88)."""
+    from ..ops.tiles import _stats_pass
+    from .pca import PCAResult
+
+    if aux_dim is None:
+        aux_dim = 2 * eigen_cnt
+    dev = _source_device(source)
+    n_pad = source.n_groups * source.group
+    m = source.n_chunks * source.chunk
+
+    avg = _stats_pass(source)[0].reshape(-1)
+    scale = torch.from_numpy(_rand_scale(avg)).to(dev)
+    avg = torch.from_numpy(avg).to(dev)
+    g_mat = torch.from_numpy(_g0(seed, n_samp, n_pad, aux_dim)).to(dev)
+
+    h_parts = []
+    y2 = torch.zeros(m, dtype=torch.float64, device=dev)
+    for it in range(iter_num + 1):
+        h_all = _sweep_h(source, avg, scale, g_mat, y2 if it == 0 else None)
+        h_parts.append(h_all)
+        if verbose:
+            print(f"randomized PCA: power pass {it + 1}/{iter_num + 1}")
+        if it < iter_num:
+            g_mat = _sweep_yt(source, avg, scale, h_all) / m  # padded m
+    trace_xtx = float(y2.sum())
+
+    q = torch.linalg.qr(torch.cat(h_parts, dim=1))[0].contiguous()
+    del h_parts
+    t_tr = _sweep_yt(source, avg, scale, q)  # T' (n_pad, hsize)
+    del q
+    eigenval, eigenvect, vp, trace2 = _eigen_from_t(t_tr, eigen_cnt, n_samp,
+                                                    trace_xtx)
+    sample_id = getattr(source, "sample_id",
+                        np.asarray([f"s{i}" for i in range(n_samp)],
+                                   object))
+    snp_id = getattr(source, "snp_id", np.arange(source.n_snp))
+    return PCAResult(sample_id, snp_id, eigenval, eigenvect, vp, trace2,
+                     False, None)

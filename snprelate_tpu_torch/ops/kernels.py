@@ -14,9 +14,10 @@ kernels its path went through.
 - ``norm_gram`` (K2b) replaces _pca_step and, with a count carry,
   _gcta_step; in indicator mode the weighted validity grams of
   _king_homo_step and _eigmix_step
-- ``rand_h``    (K3a) replaces pca_randomized.py:_h_step (H = Y G)
-- ``rand_yt``   (K3b) replaces pca_randomized.py:_g_step and _t_step
-  (carry += Y' M)
+- ``rand_h``    (K3a) replaces pca_randomized.py:_h_step and the slab
+  route's h_accum (H += Y G, with the per-SNP sums of y^2)
+- ``rand_yt``   (K3b) replaces pca_randomized.py:_g_step and _t_step, the
+  slab route's g_accum and t_accum and the rank PCA's W (carry += Y' M)
 - ``het_count`` (K5) replaces the per-sample het count of _eigmix_step
 - ``gram5_rows`` (K1r, ``csrc/gram4.cu``) replaces _basis_rows_step /
   _basis_strip_update: the five row-strip count grams
@@ -34,6 +35,8 @@ kernels its path went through.
   _eigmix_tile_scan_c and _king_homo_tile_scan_c
 - ``king_screen_tile`` (K6t, ``csrc/king_screen.cu``) replaces king.py's
   tile_hits: the KING-robust screen of one super tile
+- ``pc_corr``   (K7) replaces ops/loadings.py:_corr_step: the correlation
+  of every SNP with every eigenvector
 """
 
 from __future__ import annotations
@@ -57,14 +60,15 @@ _ARGTYPES = {
                           _L, _P),
     "snp_stats": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "norm_gram": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P),
-    "rand_h": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P),
-    "rand_yt": (_P, _I, _I, _P, _P, _P, _I, _P, _P),
+    "rand_h": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    "rand_yt": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P),
     "het_count": (_P, _I, _I, _P, _P),
     "gram5_tile": (_P, _P, _I, _I, _P),
     "norm_gram_tile": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I),
     "king_screen_tile_count": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _P),
     "king_screen_tile_write": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _P,
                                _P, _L),
+    "pc_corr": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P),
 }
 
 
@@ -422,24 +426,33 @@ def _check_rand(packed, avg, scale):
     return S, B
 
 
-def _h_slice(n: int, rows: int, device: torch.device) -> int:
-    """Samples per slice of rand_h's sample axis: enough slices that the
-    (row tiles x column tiles x slices) grid gives about four blocks per
-    SM, each slice a multiple of 32 samples and at least 512 long."""
+def _axis_slice(n: int, tiles: int, device: torch.device) -> int:
+    """Length of a slice of a kernel's summed axis of length n (samples for
+    rand_h and pc_corr, SNPs for rand_yt): enough slices that the
+    (tiles x slices) grid gives about four blocks per SM, each slice a
+    multiple of 32 and at least 512 long."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(-(-4 * sms // max(rows, 1)), n // 512))
+    want = max(1, min(-(-4 * sms // max(tiles, 1)), n // 512))
     return -(-n // want // 32) * 32
 
 
-def rand_h_plain(packed, avg, scale, g, h) -> None:
+def rand_h_plain(packed, avg, scale, g, h, y2=None) -> None:
     """Plain version of :func:`rand_h`, in float64."""
-    h.copy_(rand_block(packed, avg, scale) @ g)
+    y = rand_block(packed, avg, scale)
+    h += y @ g
+    if y2 is not None:
+        y2 += (y * y).sum(1)
 
 
 def rand_h(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
-           g: torch.Tensor, h: torch.Tensor) -> None:
-    """h (S, k) float64 = Y G of the randomized-PCA block of one packed
-    (S, N/4) chunk and g (N, k) float64, written in place."""
+           g: torch.Tensor, h: torch.Tensor,
+           y2: torch.Tensor | None = None) -> None:
+    """h (S, k) float64 += Y G, updated in place, of the randomized-PCA
+    block of packed (S, N/4) rows (one chunk, or the flattened slab of a
+    sample group: every SNP of the selection, one group's samples), its
+    per-SNP avg and scale (S,) and g (N, k) float64; with y2 (S,)
+    float64, also y2 += the sum of y^2 of each row. Pass a zeroed h for
+    H = Y G."""
     S, B = _check_rand(packed, avg, scale)
     dev, n = packed.device, 4 * B
     if g.dim() != 2:
@@ -447,14 +460,23 @@ def rand_h(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
     k = g.shape[1]
     _check(g, "g", torch.float64, (n, k), dev)
     _check(h, "h", torch.float64, (S, k), dev)
+    if y2 is not None:
+        _check(y2, "y2", torch.float64, (S,), dev)
     if not packed.is_cuda:
-        return rand_h_plain(packed, avg, scale, g, h)
-    slice_len = _h_slice(n, -(-S // 64) * -(-k // 64), dev)
-    part = torch.empty((-(-n // slice_len), S, k), dtype=torch.float64,
-                       device=dev)
+        return rand_h_plain(packed, avg, scale, g, h, y2)
+    slice_len = _axis_slice(n, -(-S // 64) * -(-k // 64), dev)
+    nslice = -(-n // slice_len)
+    part = y2part = None
+    if nslice > 1:  # few rows: partial tiles per slice, added in order
+        part = torch.empty((nslice, S, k), dtype=torch.float64, device=dev)
+        if y2 is not None:
+            y2part = torch.empty((nslice, S), dtype=torch.float64,
+                                 device=dev)
     _launch("rand_h", dev, packed.data_ptr(), S, B, avg.data_ptr(),
-            scale.data_ptr(), g.data_ptr(), k, slice_len, part.data_ptr(),
-            h.data_ptr())
+            scale.data_ptr(), g.data_ptr(), k, slice_len,
+            None if part is None else part.data_ptr(),
+            None if y2part is None else y2part.data_ptr(), h.data_ptr(),
+            None if y2 is None else y2.data_ptr())
     rand_h.launches += 1
 
 
@@ -468,8 +490,11 @@ def rand_yt_plain(packed, avg, scale, m, carry) -> None:
 
 def rand_yt(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
             m: torch.Tensor, carry: torch.Tensor) -> None:
-    """carry (N, c) float64 += Y' M of the randomized-PCA block of one
-    packed (S, N/4) chunk and m (S, c) float64, updated in place."""
+    """carry (N, c) float64 += Y' M, updated in place, of the
+    randomized-PCA block of packed (S, N/4) rows (a chunk or a flattened
+    slab), its per-SNP avg and scale (S,) and m (S, c) float64. Where the
+    carry's tiles do not fill the card (few samples), the SNP axis is cut
+    into slices, added in order (bitwise repeatable)."""
     S, B = _check_rand(packed, avg, scale)
     dev, n = packed.device, 4 * B
     if m.dim() != 2:
@@ -479,8 +504,13 @@ def rand_yt(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
     _check(carry, "carry", torch.float64, (n, c), dev)
     if not packed.is_cuda:
         return rand_yt_plain(packed, avg, scale, m, carry)
+    slice_len = max(_axis_slice(S, (n // 64) * -(-c // 64), dev), 32)
+    nslice = -(-S // slice_len)
+    part = (torch.empty((nslice, n, c), dtype=torch.float64, device=dev)
+            if nslice > 1 else None)
     _launch("rand_yt", dev, packed.data_ptr(), S, B, avg.data_ptr(),
-            scale.data_ptr(), m.data_ptr(), c, carry.data_ptr())
+            scale.data_ptr(), m.data_ptr(), c, slice_len,
+            None if part is None else part.data_ptr(), carry.data_ptr())
     rand_yt.launches += 1
 
 
@@ -777,12 +807,60 @@ def king_screen_tile(counters: torch.Tensor, fam_rows: torch.Tensor,
 
 king_screen_tile.launches = 0
 
+# ------------------------------------------------------------- K7 pc_corr
+
+def pc_corr_plain(packed: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`pc_corr`: the JAX step's arithmetic in
+    float64."""
+    geno = decode2bit(packed)
+    gsum, gnum, valid = chunk_snp_stats(geno)
+    gz = torch.where(valid, geno, 0).double()
+    v = valid.double()
+    m = gnum.double()[:, None]
+    xy, x, xx = gz @ e, v @ e, v @ (e * e)
+    y = gsum.double()[:, None]
+    yy = (gz * gz).sum(1, keepdim=True)
+    c1 = xx - x * x / m
+    c2 = yy - y * y / m
+    val = c1 * c2
+    return torch.where((m > 1) & (val > 0),
+                       (xy - x * y / m)
+                       / torch.sqrt(torch.where(val > 0, val, 1.0)),
+                       float("nan"))
+
+
+def pc_corr(packed: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """(S, K) float64 pairwise-complete Pearson correlation of each SNP of
+    one packed (S, N/4) chunk with each column of e (N, K) float64 (zero
+    rows past the samples), over the SNP's valid calls; NaN where it has at
+    most one valid call or either variance is not positive."""
+    S, B = _check_packed(packed)
+    dev, n = packed.device, 4 * B
+    if e.dim() != 2:
+        raise ValueError("e: expected a 2-d (N, K) tensor")
+    K = e.shape[1]
+    _check(e, "e", torch.float64, (n, K), dev)
+    if not packed.is_cuda:
+        return pc_corr_plain(packed, e)
+    slice_len = _axis_slice(n, -(-S // 64) * -(-K // 32), dev)
+    nslice = -(-n // slice_len) if n else 1
+    part = torch.empty((nslice, 3, S, K), dtype=torch.float64, device=dev)
+    spart = torch.empty((nslice, 3, S), dtype=torch.float64, device=dev)
+    corr = torch.empty((S, K), dtype=torch.float64, device=dev)
+    _launch("pc_corr", dev, packed.data_ptr(), S, B, e.data_ptr(), K,
+            slice_len, part.data_ptr(), spart.data_ptr(), corr.data_ptr())
+    pc_corr.launches += 1
+    return corr
+
+
+pc_corr.launches = 0
+
 # the wrappers by kernel name, for code that resets or reads the counts
 KERNELS = {"gram4": gram4, "snp_stats": snp_stats, "norm_gram": norm_gram,
            "rand_h": rand_h, "rand_yt": rand_yt, "het_count": het_count,
            "gram5_rows": gram5_rows, "norm_gram_rows": norm_gram_rows,
            "king_screen": king_screen, "gram5_tile": gram5_tile,
            "norm_gram_tile": norm_gram_tile,
-           "king_screen_tile": king_screen_tile}
+           "king_screen_tile": king_screen_tile, "pc_corr": pc_corr}
 # the source (csrc/<source>.cu) of each kernel
 SOURCES = {name: _ENTRY_SOURCE.get(name, name) for name in KERNELS}

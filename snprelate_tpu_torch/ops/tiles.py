@@ -91,17 +91,24 @@ class StoreSlabSource:
     for that copy."""
 
     def __init__(self, ws, group: int, chunk: int, meter=None,
-                 cache_budget=None, device=None):
+                 cache_budget=None, device=None, chunk_sel=None):
         _check_group(group)
         self.ws = ws
         self.group = group
         self.chunk = chunk
         self.device = resolve_device(device)
-        self.n_chunks = -(-ws.n_snp // chunk)
+        # chunk_sel: serve only these chunk indices (the SNP partition of
+        # the rank-partitioned PCA, models/pca_rank.py); slabs and stats
+        # then cover len(chunk_sel) chunks in that order
+        self.chunk_sel = (None if chunk_sel is None
+                          else np.asarray(chunk_sel, np.int64))
+        self.n_chunks = (-(-ws.n_snp // chunk) if chunk_sel is None
+                         else len(self.chunk_sel))
         self.n_groups = -(-ws.n_samp // group)
         self.n_samp = ws.n_samp
         self.n_snp = ws.n_snp
         self.meter = meter if meter is not None else TransferMeter()
+        self.cache_budget = cache_budget  # as given: siblings inherit it
         explicit = cache_budget is not None
         if cache_budget is None:
             cache_budget = SLAB_CACHE_BUDGET
@@ -143,13 +150,29 @@ class StoreSlabSource:
         idx = self.ws.samp_idx[s0: s0 + self.group]
         c0 = s0 // 4  # byte-aligned because group % 4 == 0
         c1 = min(c0 + g4, self.ws.data.genotype_packed.shape[1])
-        for i in range(self.n_chunks):
-            nr, rows = self._rows(i)
+        for i, ci in enumerate(self._chunks()):
+            nr, rows = self._rows(ci)
             if self._identity:
                 out[i, :nr, :c1 - c0] = rows[:, c0:c1]
             else:
                 out[i, :nr] = subset_repack(rows, idx, g4)
         return out
+
+    def _chunks(self):
+        """The store's chunk indices this source serves, in order."""
+        return (range(self.n_chunks) if self.chunk_sel is None
+                else self.chunk_sel)
+
+    def with_chunk_sel(self, sel):
+        """A sibling source serving only the given chunk indices of this
+        one (the rank-partitioned PCA's SNP partition; the host reads only
+        those chunks' packed rows), with this one's ``cache_budget``."""
+        if self.chunk_sel is not None:
+            sel = self.chunk_sel[np.asarray(sel)]
+        return StoreSlabSource(self.ws, self.group, self.chunk,
+                               meter=self.meter,
+                               cache_budget=self.cache_budget,
+                               device=self.device, chunk_sel=sel)
 
     def _load(self, j: int):
         """(device slab, copy event or None)."""
@@ -205,8 +228,8 @@ class StoreSlabSource:
 
         gsum = np.zeros((self.n_chunks, self.chunk), np.int64)
         gnum = np.zeros((self.n_chunks, self.chunk), np.int64)
-        for i in range(self.n_chunks):
-            nr, rows = self._rows(i)
+        for i, ci in enumerate(self._chunks()):
+            nr, rows = self._rows(ci)
             gsum[i, :nr], gnum[i, :nr] = snp_stats_packed(rows,
                                                           self.ws.samp_idx)
         return gsum, gnum
@@ -218,29 +241,47 @@ class DeviceSlabSource:
     sample in the low bits and missing (0xFF) padding past ``n_snp`` SNPs
     and ``n_samp`` samples. slab(j) copies group j's byte columns into a
     (n_chunks, chunk, group // 4) tensor, padded with 0xFF past the packed
-    width. No host statistics: pass 1 runs K2a on the card."""
+    width; with ``chunk_sel`` only those chunks, in that order (as
+    :class:`StoreSlabSource`). No host statistics: pass 1 runs K2a on the
+    card."""
 
     def __init__(self, packed: torch.Tensor, n_samp: int, group: int,
-                 chunk: int, n_snp: int | None = None):
+                 chunk: int, n_snp: int | None = None, chunk_sel=None):
         _check_group(group)
         self.packed = packed.reshape(-1, packed.shape[-1])
         if self.packed.shape[0] % chunk:
             raise ValueError("packed: the SNP rows must be whole chunks")
         self.group, self.chunk = group, chunk
-        self.n_chunks = self.packed.shape[0] // chunk
+        self.chunk_sel = (None if chunk_sel is None
+                          else np.asarray(chunk_sel, np.int64))
+        self.n_chunks = (self.packed.shape[0] // chunk if chunk_sel is None
+                         else len(self.chunk_sel))
         self.n_samp = int(n_samp)
         self.n_snp = self.packed.shape[0] if n_snp is None else int(n_snp)
         self.n_groups = -(-self.n_samp // group)
         self.device = packed.device
 
+    def with_chunk_sel(self, sel):
+        """A sibling source serving only the given chunk indices of this
+        one."""
+        if self.chunk_sel is not None:
+            sel = self.chunk_sel[np.asarray(sel)]
+        return DeviceSlabSource(self.packed, self.n_samp, self.group,
+                                self.chunk, self.n_snp, chunk_sel=sel)
+
     def slab(self, j: int) -> torch.Tensor:
         g4 = self.group // 4
         c0 = j * g4
         c1 = min(c0 + g4, self.packed.shape[1])
-        out = torch.full((self.n_chunks * self.chunk, g4), 0xFF,
+        out = torch.full((self.n_chunks, self.chunk, g4), 0xFF,
                          dtype=torch.uint8, device=self.device)
-        out[:, :c1 - c0] = self.packed[:, c0:c1]
-        return out.view(self.n_chunks, self.chunk, g4)
+        if self.chunk_sel is None:
+            out.view(-1, g4)[:, :c1 - c0] = self.packed[:, c0:c1]
+        else:
+            rows = self.packed.view(-1, self.chunk, self.packed.shape[1])
+            for i, ci in enumerate(self.chunk_sel.tolist()):
+                out[i, :, :c1 - c0] = rows[ci, :, c0:c1]
+        return out
 
 
 def _slab_stats(slab: torch.Tensor):

@@ -60,8 +60,10 @@ def device_chunks(ws, chunk: int, n_pad: int, device: torch.device,
     chunks = ws.packed_chunks(chunk, pad_bytes=n_pad // 4,
                               start_chunk=start_chunk)
     if device.type != "cuda":
-        yield from prefetch((torch.from_numpy(np.array(p)) for _, p in chunks),
-                            depth=depth)
+        # a copy in C order: a sample subset's repack can come back in
+        # Fortran order, and the wrappers take contiguous chunks only
+        yield from prefetch((torch.from_numpy(np.array(p, order="C"))
+                             for _, p in chunks), depth=depth)
         return
     copy_stream = torch.cuda.Stream(device)
 

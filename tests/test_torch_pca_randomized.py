@@ -48,7 +48,7 @@ def test_rand_kernels_match_jax_steps(n, k):
     _, _, avg, scale, _, y2 = snp_stats(tp, "randomized")
 
     jh, jtrace = jpr._h_step(jp, jnp.asarray(g))
-    h = torch.full((CHUNK, k), np.nan, dtype=torch.float64)
+    h = torch.zeros((CHUNK, k), dtype=torch.float64)  # rand_h adds into h
     rand_h(tp, avg, scale, torch.from_numpy(g), h)
     _close(h.numpy(), jh)
     assert float(y2.sum()) == pytest.approx(float(jtrace), rel=RTOL)
