@@ -7,7 +7,12 @@ KING-robust relatedness screen (``king_ibd_selection``), and the PCA
 workflow past the slab budget: slab-wise and rank-partitioned randomized
 PCA (``models/pca_randomized.randomized_pca_slabs``,
 ``models/pca_rank``), SNP-PC correlations, SNP loadings and sample
-projection (``pca_corr``, ``pca_snp_loading``, ``pca_samp_loading``).
+projection (``pca_corr``, ``pca_snp_loading``, ``pca_samp_loading``),
+and the serving path: ``king_cross`` and ``serve.CohortService`` (new
+samples related to and projected onto a cohort resident on the card),
+with the host statistics it needs (``select_snp``, ``snp_rate_freq``,
+``samp_miss_rate``, ``get_geno``, ``summary``, ``hwe``, ``ind_inb``,
+``ind_inb_coef``, ``create_geno_set``).
 The count and GRM analyses take ``sample_block=`` for the row-strip route,
 which keeps device memory O(block x N), and past the slab-staging budget
 (or with ``tiles=True`` / ``tile_rank=``) the super-tile route of
@@ -32,6 +37,12 @@ from .models.eigmix import eigmix
 from .models.diss import diss
 from .models.ibd_mom import ibd_mom
 from .models.beta import indiv_beta, indiv_beta_rel
+from .models.king import king_cross
+from .models.hwe import hwe
+from .models.inbreeding import ind_inb, ind_inb_coef
+from .models.stats import (get_geno, samp_miss_rate, select_snp,
+                           snp_rate_freq, summary)
+from .models.misc import create_geno_set
 
 # Reference-style aliases
 snpgdsCreateGeno = create_geno
@@ -48,5 +59,14 @@ snpgdsDiss = diss
 snpgdsIBDMoM = ibd_mom
 snpgdsIndivBeta = indiv_beta
 snpgdsIndivBetaRel = indiv_beta_rel
+snpgdsHWE = hwe
+snpgdsIndInb = ind_inb
+snpgdsIndInbCoef = ind_inb_coef
+snpgdsSNPRateFreq = snp_rate_freq
+snpgdsSampMissRate = samp_miss_rate
+snpgdsSelectSNP = select_snp
+snpgdsGetGeno = get_geno
+snpgdsSummary = summary
+snpgdsCreateGenoSet = create_geno_set
 
 __version__ = "0.1.0"

@@ -23,6 +23,23 @@
 // pointer twice; the int32 sums are exact below 2^31 SNPs, which the
 // engines guard (guard_count_snps).
 //
+// K8 gram5_cross replaces _cross_gram_step (snprelate_tpu/ops/pairwise.py:545),
+// the serving path's (query x cohort) update: for one packed cohort chunk
+// and a query given as one code byte per genotype, (q, Sq) with 3 = missing
+// (any code above 2 counts as missing, and so do the query columns from Sq
+// to the chunk's S), it adds Qv'V, Qh'H, Qd'D, Qh'V and Qv'H into an int32
+// (5, q, N) carry. The query is small (1 to 64 rows in serving), so the
+// cohort samples take the mma's M side and the queries its n8 side: one n8
+// fragment holds 8 queries, and no 64 x 64 tile is wasted on 8 live rows.
+// The cohort stage is K1's; the query stage copies code bytes as they are
+// (they are already sample-major with the SNP axis contiguous) and the same
+// register basis serves both. The epilogue adds each fragment transposed
+// into the (5, q, N) carry. At q = 8 it is bound by the packed chunk's
+// bytes, at q = 64 by int8 operations. A variant that formed the query's
+// V, H and D once per stage in shared memory, with one 8-warp block over
+// 64 queries, measured slower on the card at q = 8 and 64 (160 registers
+// a thread, so one such block per SM).
+//
 // What bounds them on the card: int8 tensor-core operations, 2*S per
 // output entry and gram, against S*N/4 bytes of input and the int32 carry
 // read and written once per chunk.
@@ -228,6 +245,116 @@ gram5_tile_kernel(const uint8_t *__restrict__ slab_i,
   add_tile<5>(carry, G * G, G, i0, j0, acc);
 }
 
+// K8: block (x, y) owns cohort samples 64x.. and queries QT y.., QT = 8 NF.
+// Warp w owns cohort rows 16w.. of the tile and all NF n8 fragments.
+template <int NF>
+__global__ void __launch_bounds__(128)
+gram5_cross_kernel(const uint8_t *__restrict__ packed, int S, int B,
+                   const uint8_t *__restrict__ query, int q_rows, long long ldq,
+                   int Sq, int *__restrict__ carry) {
+  constexpr int QT = 8 * NF;
+  __shared__ __align__(16) uint8_t sc[TILE][LDS];  // cohort [sample][snp]
+  __shared__ __align__(16) uint8_t sq[QT][LDS];    // query [query][snp]
+  const long long N = 4LL * B;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int i0 = blockIdx.x * TILE, q0 = blockIdx.y * QT;
+
+  // cohort fill, as K1's: thread -> (SNP quad lane, 16-sample word warp)
+  const uint8_t *src = packed + (i0 >> 2) + 4 * warp;
+  uint8_t *dst = &sc[16 * warp][4 * lane];
+
+  int acc[5][NF][4];
+#pragma unroll
+  for (int x = 0; x < 5; ++x)
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) acc[x][n][f] = 0;
+  for (int k0 = 0; k0 < S; k0 += BK) {
+    uint32_t w[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int s = k0 + 4 * lane + r;
+      w[r] = s < S ? __ldg(reinterpret_cast<const uint32_t *>(
+                         src + (size_t)s * B))
+                   : 0xFFFFFFFFu;  // past the chunk: missing
+    }
+    // query fill: QT rows x 32 words of 4 SNP codes, byte loads (the
+    // query slice has no alignment), missing past Sq and q_rows
+    uint32_t qw[QT / 4];
+#pragma unroll
+    for (int i = 0; i < QT / 4; ++i) {
+      const int slot = tid + 128 * i, row = slot >> 5, col = 4 * (slot & 31);
+      const int qr = q0 + row;
+      uint32_t word = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int s = k0 + col + b;
+        uint32_t c = 3u;
+        if (qr < q_rows && s < Sq) {
+          c = __ldg(query + (size_t)qr * ldq + s);
+          c = c > 3u ? 3u : c;
+        }
+        word |= c << (8 * b);
+      }
+      qw[i] = word;
+    }
+    __syncthreads();  // the previous stage's fragments are consumed
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int sh = 2 * j;
+      const uint32_t c = ((w[0] >> sh) & 3u) | (((w[1] >> sh) & 3u) << 8) |
+                         (((w[2] >> sh) & 3u) << 16) |
+                         (((w[3] >> sh) & 3u) << 24);
+      *reinterpret_cast<uint32_t *>(dst + j * LDS) = c;
+    }
+#pragma unroll
+    for (int i = 0; i < QT / 4; ++i) {
+      const int slot = tid + 128 * i;
+      *reinterpret_cast<uint32_t *>(&sq[slot >> 5][4 * (slot & 31)]) = qw[i];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      uint32_t av[4], ah[4], ad[4];
+      const uint8_t *p = &sc[16 * warp + g][kk + 4 * t];
+      basis(lds32(p), av[0], ah[0], ad[0]);
+      basis(lds32(p + 8 * LDS), av[1], ah[1], ad[1]);
+      basis(lds32(p + 16), av[2], ah[2], ad[2]);
+      basis(lds32(p + 8 * LDS + 16), av[3], ah[3], ad[3]);
+#pragma unroll
+      for (int n = 0; n < NF; ++n) {
+        uint32_t bv[2], bh[2], bd[2];
+        const uint8_t *pq = &sq[8 * n + g][kk + 4 * t];
+        basis(lds32(pq), bv[0], bh[0], bd[0]);
+        basis(lds32(pq + 16), bv[1], bh[1], bd[1]);
+        mma_s8(acc[0][n], av, bv);  // Qv'V
+        mma_s8(acc[1][n], ah, bh);  // Qh'H
+        mma_s8(acc[2][n], ad, bd);  // Qd'D
+        mma_s8(acc[3][n], av, bh);  // Qh'V
+        mma_s8(acc[4][n], ah, bv);  // Qv'H
+      }
+    }
+  }
+
+  // epilogue: fragment f of n8 tile n is cohort row g (+8 for f >= 2) and
+  // query 2t + (f & 1); carry[x][query][sample] += it
+  const long long plane = (long long)q_rows * N;
+  const long long r = i0 + 16 * warp + g;
+#pragma unroll
+  for (int n = 0; n < NF; ++n)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int qr = q0 + 8 * n + 2 * t + (f & 1);
+      if (qr < q_rows) {
+        int *p = carry + (long long)qr * N + r + 8 * (f >> 1);
+#pragma unroll
+        for (int x = 0; x < 5; ++x) p[x * plane] += acc[x][n][f];
+      }
+    }
+}
+
 }  // namespace
 
 // packed: (S, B) uint8, B % 16 == 0; carry: (4, 4B, 4B) int32, updated in
@@ -269,5 +396,32 @@ extern "C" int gram5_tile_launch(const void *slab_i, const void *slab_j,
         static_cast<const uint8_t *>(slab_i),
         static_cast<const uint8_t *>(slab_j), S, B,
         static_cast<int *>(carry));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// packed: (S, B) uint8, B % 16 == 0 (the cohort chunk); query: q_rows rows
+// of code bytes with row stride ldq, of which the first Sq <= S columns are
+// read; carry: (5, q_rows, 4B) int32, updated in place. Launches on
+// `stream`; returns cudaGetLastError().
+extern "C" int gram5_cross_launch(const void *packed, int S, int B,
+                                  const void *query, int q_rows,
+                                  long long ldq, int Sq, void *carry,
+                                  void *stream) {
+  const int tiles = 4 * B / TILE;
+  if (tiles > 0 && q_rows > 0 && S > 0) {
+    const auto *pk = static_cast<const uint8_t *>(packed);
+    const auto *qy = static_cast<const uint8_t *>(query);
+    auto *cr = static_cast<int *>(carry);
+    const auto st = static_cast<cudaStream_t>(stream);
+    if (q_rows <= 8)
+      gram5_cross_kernel<1><<<dim3(tiles, 1), 128, 0, st>>>(
+          pk, S, B, qy, q_rows, ldq, Sq, cr);
+    else if (q_rows <= 16)
+      gram5_cross_kernel<2><<<dim3(tiles, 1), 128, 0, st>>>(
+          pk, S, B, qy, q_rows, ldq, Sq, cr);
+    else
+      gram5_cross_kernel<4><<<dim3(tiles, (q_rows + 31) / 32), 128, 0,
+                                 st>>>(pk, S, B, qy, q_rows, ldq, Sq, cr);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -87,7 +87,8 @@ def _grm_rows(ws, method, sample_block, chunk, checkpoint, verbose, device):
 
 def grm(data, sample_id=None, snp_id=None, autosome_only=True,
         remove_monosnp=True, maf=math.nan, missing_rate=0.01,
-        method="GCTA", mesh=None, verbose=False, chunk=None,
+        method="GCTA", out_fn=None, out_prec="double",
+        out_compress="LZMA_RA", mesh=None, verbose=False, chunk=None,
         checkpoint=None, sample_block=None, use_matrix=False, tiles=None,
         tile_group=None, tile_devices=None, tile_rank=None, with_id=True,
         num_thread=None, device=None) -> GRMResult:
@@ -104,9 +105,14 @@ def grm(data, sample_id=None, snp_id=None, autosome_only=True,
     rank's tile rows into checkpoint= and returns None; a later run over
     the same checkpoint (a tile-grid meta, tag 71 or 72) assembles the
     GRM without recomputing. mesh= and tile_devices= raise
-    NotImplementedError (ROADMAP item 12). num_thread is accepted and
-    ignored. device: None = the CUDA card; "cpu" runs the plain
-    versions."""
+    NotImplementedError (ROADMAP item 12). out_fn= (the GDS artifact, with
+    out_prec and out_compress) needs the GDS writer, which is not ported,
+    and raises. num_thread is accepted and ignored. device: None = the
+    CUDA card; "cpu" runs the plain versions."""
+    if out_fn is not None:
+        raise NotImplementedError(
+            "grm: out_fn= needs the GDS writer (io/gds.py), which is not "
+            "ported yet (ROADMAP section 1 item 7c)")
     if method == "Weighted":
         # "Weighted GCTA" is the EIGMIX-based GRM (R/IBD.R:552-556)
         method = "EIGMIX"

@@ -9,6 +9,10 @@ Both estimators post-process the fused pairwise counters:
   k0 = IBS0/(2*SumAFreq2), k1 = 2 - 2*k0 - 4*theta, with
   SumAFreq(2) = AF-weighted validity grams accumulated per chunk.
 
+``king_cross`` relates new (query) samples to a cohort: the KING-robust
+estimator over the rectangular (query x cohort) counts of
+``cross_pair_counts`` (``gram5_cross``, K8).
+
 ``king_ibd_selection`` screens a cohort for related pairs without the
 n x n matrix: row strips of the count grams (``gram5_rows``, K1r) and a
 screen that compacts each strip's candidates on the device
@@ -28,8 +32,9 @@ import numpy as np
 import torch
 
 from ..ops.kernels import gram5_rows, gram5_tile, king_screen, king_screen_tile
-from ..ops.pairwise import (_row_tile_setup, auto_chunk, king_homo_counts,
-                            pair_counts, past_staging_budget, refuse_routes)
+from ..ops.pairwise import (_row_tile_setup, auto_chunk, cross_pair_counts,
+                            king_homo_counts, pair_counts,
+                            past_staging_budget, refuse_routes)
 from ..utils.device import resolve_device
 from ..utils.packed import maybe_packed
 from ..workspace import init_workspace
@@ -51,6 +56,42 @@ class KINGHomoResult:
     afreq: Optional[np.ndarray]
     k0: np.ndarray
     k1: np.ndarray
+
+
+def king_cross(data, query_geno, query_id=None, sample_id=None, snp_id=None,
+               autosome_only=True, remove_monosnp=True, maf=math.nan,
+               missing_rate=0.01, chunk=None, verbose=False, device=None):
+    """KING-robust kinship of new (query) samples against every cohort
+    sample: one pass of rectangular (q x n) count grams
+    (``ops.pairwise.cross_pair_counts``, K8), O(q x n) memory.
+    query_geno: (q, n_selected_snp) dosages 0/1/2, 3 = missing, in the
+    cohort's post-filter SNP order. Estimator: the between-family
+    KING-robust formula (genKING.cpp:634-638) per (query, cohort) pair.
+    Returns a KINGRobustResult with (q, n) kinship and IBS0; sample_id
+    holds the cohort ids, afreq the query ids. device: None = the CUDA
+    card; "cpu" runs the plain versions."""
+    ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
+                           remove_monosnp, maf, missing_rate,
+                           verbose=verbose)
+    c = cross_pair_counts(ws, query_geno, chunk=chunk, verbose=verbose,
+                          device=device)
+    return king_cross_from_counts(c, ws.sample_id, ws.snp_id, query_id)
+
+
+def king_cross_from_counts(c, cohort_id, snp_id, query_id=None):
+    """The between-family KING-robust estimator (genKING.cpp:634-638) on
+    rectangular (query x cohort) PairCounts, shared by king_cross and the
+    serving path."""
+    nloci = c.nvalid.astype(np.float64)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        ibs0 = np.where(nloci > 0, c.ibs0 / nloci, np.nan)
+        n1 = c.n1_het.astype(np.float64)
+        n2 = c.n2_het.astype(np.float64)
+        kinship = 0.5 - c.sum_sq / (4.0 * np.minimum(n1, n2))
+    kinship[~np.isfinite(kinship)] = np.nan
+    qid = (np.asarray(query_id, dtype=object) if query_id is not None
+           else np.arange(kinship.shape[0]))
+    return KINGRobustResult(cohort_id, snp_id, qid, ibs0, kinship)
 
 
 def _resolve_family(family_id, sample_id, ws) -> np.ndarray:

@@ -37,6 +37,9 @@ kernels its path went through.
   tile_hits: the KING-robust screen of one super tile
 - ``pc_corr``   (K7) replaces ops/loadings.py:_corr_step: the correlation
   of every SNP with every eigenvector
+- ``gram5_cross`` (K8, ``csrc/gram4.cu``) replaces ops/pairwise.py's
+  _cross_gram_step: the five (query x cohort) count grams of the serving
+  path, the query given as code bytes
 """
 
 from __future__ import annotations
@@ -69,6 +72,7 @@ _ARGTYPES = {
     "king_screen_tile_write": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _P,
                                _P, _L),
     "pc_corr": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P),
+    "gram5_cross": (_P, _I, _I, _P, _I, _L, _I, _P, _P),
 }
 
 
@@ -79,12 +83,24 @@ _ENTRY_SOURCE = {"gram5_rows": "gram4", "norm_gram_rows": "norm_gram",
                  "norm_gram_tile": "norm_gram",
                  "king_screen_tile": "king_screen",
                  "king_screen_tile_count": "king_screen",
-                 "king_screen_tile_write": "king_screen"}
+                 "king_screen_tile_write": "king_screen",
+                 "gram5_cross": "gram4"}
+
+
+def _entry(name: str):
+    return _build.entry(name, _ARGTYPES[name], _ENTRY_SOURCE.get(name))
+
+
+def prepare(*names: str) -> None:
+    """Build and load the C entries of the named kernels now (the first
+    launch would), so that a long-lived caller does not compile inside a
+    request."""
+    for name in names:
+        _entry(name)
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    err = _build.entry(name, _ARGTYPES[name], _ENTRY_SOURCE.get(name))(
-        *args, torch.cuda.current_stream(device).cuda_stream)
+    err = _entry(name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -116,10 +132,13 @@ def _check_packed(packed: torch.Tensor) -> tuple[int, int]:
 
 def _gram(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """x' y of 0/±1 integer (S, N) blocks as exact int64 counts, through a
-    float64 product: exact below 2^53, and a BLAS product on either device
-    (torch has no integer matmul on CUDA, int8 matmul wraps, and the CPU's
-    int64 matmul is some 40x slower)."""
-    return (x.double().T @ y.double()).to(torch.int64)
+    BLAS product on either device (torch has no integer matmul on CUDA,
+    int8 matmul wraps, and the CPU's int64 matmul is some 40x slower). In
+    float32 while S < 2^24: 0 and ±1 are exact in float32 (and in TF32),
+    and every partial sum is an integer below 2^24, so the product is exact
+    in any order; in float64 past it."""
+    dt = torch.float32 if x.shape[0] < (1 << 24) else torch.float64
+    return (x.to(dt).T @ y.to(dt)).to(torch.int64)
 
 
 # ---------------------------------------------------------------- K1 gram4
@@ -855,12 +874,67 @@ def pc_corr(packed: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
 
 pc_corr.launches = 0
 
+# ---------------------------------------------------------- K8 gram5_cross
+
+def _check_query(packed: torch.Tensor, query: torch.Tensor) -> None:
+    if query.dtype != torch.uint8 or query.dim() != 2:
+        raise TypeError("query: expected a 2-d uint8 tensor of codes")
+    if query.device != packed.device:
+        raise ValueError(f"query: on {query.device}, expected "
+                         f"{packed.device}")
+    if query.stride(1) != 1:
+        raise ValueError("query: its SNP axis must be contiguous")
+    if query.shape[1] > packed.shape[0]:
+        raise ValueError(f"query: {query.shape[1]} SNP columns for a chunk "
+                         f"of {packed.shape[0]}")
+
+
+def gram5_cross_plain(packed: torch.Tensor, query: torch.Tensor,
+                      carry: torch.Tensor) -> None:
+    """Plain version of :func:`gram5_cross`: decode, the two bases, five
+    grams."""
+    v, h, d = genotype_basis(decode2bit(packed))
+    S = packed.shape[0]
+    codes = torch.full((S, query.shape[0]), 3, dtype=torch.int8,
+                       device=query.device)
+    codes[:query.shape[1]] = torch.clamp(query, max=3).T.to(torch.int8)
+    qv, qh, qd = genotype_basis(codes)
+    for k, (x, y) in enumerate(((qv, v), (qh, h), (qd, d), (qh, v),
+                                (qv, h))):
+        carry[k] += _gram(x, y).to(torch.int32)
+
+
+def gram5_cross(packed: torch.Tensor, query: torch.Tensor,
+                carry: torch.Tensor) -> None:
+    """carry (5, q, N) int32 += Qv'V, Qh'H, Qd'D, Qh'V, Qv'H of one packed
+    (S, N/4) cohort chunk and a query of q samples, updated in place.
+    query: (q, Sq) uint8 genotype codes (0, 1, 2; any other code is
+    missing) over the chunk's first Sq <= S SNPs, its SNP axis contiguous
+    (a column slice of a longer query is fine); the chunk's SNPs past Sq
+    count as missing for the query. The int32 sums are exact below 2^31
+    SNPs (the engine's guard_count_snps)."""
+    S, B = _check_packed(packed)
+    _check_query(packed, query)
+    q = query.shape[0]
+    _check(carry, "carry", torch.int32, (5, q, 4 * B), packed.device)
+    if not packed.is_cuda:
+        return gram5_cross_plain(packed, query, carry)
+    _launch("gram5_cross", packed.device, packed.data_ptr(), S, B,
+            query.data_ptr(), q, query.stride(0), query.shape[1],
+            carry.data_ptr())
+    gram5_cross.launches += 1
+
+
+gram5_cross.launches = 0
+
+
 # the wrappers by kernel name, for code that resets or reads the counts
 KERNELS = {"gram4": gram4, "snp_stats": snp_stats, "norm_gram": norm_gram,
            "rand_h": rand_h, "rand_yt": rand_yt, "het_count": het_count,
            "gram5_rows": gram5_rows, "norm_gram_rows": norm_gram_rows,
            "king_screen": king_screen, "gram5_tile": gram5_tile,
            "norm_gram_tile": norm_gram_tile,
-           "king_screen_tile": king_screen_tile, "pc_corr": pc_corr}
+           "king_screen_tile": king_screen_tile, "pc_corr": pc_corr,
+           "gram5_cross": gram5_cross}
 # the source (csrc/<source>.cu) of each kernel
 SOURCES = {name: _ENTRY_SOURCE.get(name, name) for name in KERNELS}

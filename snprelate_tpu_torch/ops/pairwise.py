@@ -22,8 +22,12 @@ The engines stream packed 2-bit SNP chunks through the kernels of
    (CEigMix_AlgArith::Run, genEIGMIX.cpp:43-157), plus EIGMIX's
    per-sample het count (``het_count``, K5).
 
-Each takes the full-square route, where the (N, N) carries live on the
-device, or, past the JAX package's automatic thresholds or with
+4. ``cross_pair_counts``: the serving path's (query x cohort) counts,
+   five rectangular grams per chunk (``gram5_cross``, K8) over chunks
+   the caller may have staged on the device once.
+
+The first three take the full-square route, where the (N, N) carries
+live on the device, or, past the JAX package's automatic thresholds or with
 ``sample_block=``, the row-strip route (``basis_gram_rows``,
 ``gcta_parts_rows``, ``pca_cov_rows``, ``king_homo_rows``,
 ``eigmix_rows``): (B, N) strip carries, the chunks staged on the device
@@ -43,6 +47,7 @@ run.
 
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 
@@ -50,9 +55,9 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .kernels import (chunk_snp_stats, gram4, gram5_rows, het_count,
-                      norm_gram, norm_gram_rows, normalize, pca_scale,
-                      snp_stats)
+from .kernels import (chunk_snp_stats, gram4, gram5_cross, gram5_rows,
+                      het_count, norm_gram, norm_gram_rows, normalize,
+                      pca_scale, snp_stats)
 
 # int32 ceiling: every pairwise counter grows by at most 1 per SNP, so an
 # int32 carry is exact up to 2^31 - 1 accumulated SNPs.
@@ -184,6 +189,8 @@ class PairCounts:
     (both-homozygous pairs), IBS0 = (homo - dd)/2 and the equal-homozygote
     count = (homo + dd)/2 — every counter the reference's bit kernels
     produce (genIBS.cpp:231-243, genKING.cpp:292-426) follows exactly.
+    The derived counters are computed once, on first use (the base
+    matrices are never changed after construction).
     """
 
     def __init__(self, vv, hh, dd, hv, vh):
@@ -210,27 +217,27 @@ class PairCounts:
     def n11(self):  # both het
         return self.hh
 
-    @property
+    @functools.cached_property
     def _homo_pair(self):  # both homozygous (N00+N22+N02+N20)
         return self.vv + self.hh - self.hv - self.vh
 
-    @property
+    @functools.cached_property
     def ibs0(self):  # opposite homozygotes
         return (self._homo_pair - self.dd) // 2
 
-    @property
+    @functools.cached_property
     def both_hom_eq(self):  # equal homozygotes (N00+N22)
         return (self._homo_pair + self.dd) // 2
 
-    @property
+    @functools.cached_property
     def ibs2(self):  # equal genotypes (genIBS.cpp ibs2 plane logic)
         return self.both_hom_eq + self.hh
 
-    @property
+    @functools.cached_property
     def ibs1(self):
         return self.nvalid - self.ibs0 - self.ibs2
 
-    @property
+    @functools.cached_property
     def sum_sq(self):  # sum (g_i - g_j)^2 over valid pairs
         return self.ibs1 + 4 * self.ibs0
 
@@ -396,6 +403,61 @@ def pair_counts(ws, chunk=None, pad_to: int = 128, checkpoint=None,
     if acc is not None:
         total += acc
     return PairCounts.from_grams4(total, ws.n_samp)
+
+
+def query_codes(query_geno, n_snp: int) -> np.ndarray:
+    """(q, n_snp) uint8 genotype codes of a query (0/1/2, 3 = missing):
+    NaN and every code outside 0-2 (-1, 255, ...) count as missing, the
+    create_geno convention; fractional dosages raise."""
+    q_arr = np.asarray(query_geno)
+    if q_arr.ndim != 2 or q_arr.shape[1] != n_snp:
+        raise ValueError(
+            f"query_geno must be (q, {n_snp}); got {q_arr.shape}")
+    if q_arr.dtype.kind == "f":
+        q_arr = np.where(np.isfinite(q_arr), q_arr, 3.0)
+        if not np.array_equal(q_arr, np.round(q_arr)):
+            raise ValueError(
+                "query_geno has fractional dosages; hard-call to 0/1/2 "
+                "(3/NaN = missing) first")
+    q_arr = q_arr.astype(np.int64)
+    return np.where((q_arr < 0) | (q_arr > 2), 3, q_arr).astype(np.uint8)
+
+
+def cross_pair_counts(ws, query_geno, chunk=None, pad_to: int = 128,
+                      verbose: bool = False, staged=None,
+                      device=None) -> PairCounts:
+    """Integer pairwise counts of every (query sample x cohort sample)
+    pair: five rectangular (q, N) count grams per chunk (``gram5_cross``,
+    K8), the query as code bytes on the device, O(q x N) memory.
+    query_geno: (q, ws.n_snp) dosages 0/1/2 with 3 = missing, in the
+    workspace's SNP order. Returns a PairCounts of (q, n) rectangles, the
+    query sample the first index. ``staged``: an optional callable giving
+    the device packed cohort chunks (``_stage_or_stream`` with the same
+    chunk and pad_to), so a long-lived service sends the cohort to the
+    card once. As in the JAX package the int32 carry is not flushed;
+    ``guard_count_snps`` refuses selections where it could wrap."""
+    guard_count_snps(ws.n_snp, "cross pair counts")
+    codes = query_codes(query_geno, ws.n_snp)
+    dev = resolve_device(device)
+    nq, S = codes.shape
+    n_pad = -(-ws.n_samp // pad_to) * pad_to
+    q_pad = -(-nq // 8) * 8
+    if chunk is None:
+        chunk = auto_chunk(ws.n_snp, dev)
+    # the query rows past q and its SNPs past the selection are missing,
+    # so the final (padded) chunk needs no copy of its own
+    padded = np.full((q_pad, -(-S // chunk) * chunk), 3, np.uint8)
+    padded[:nq, :S] = codes
+    qdev = torch.from_numpy(padded).to(dev)
+    carry = torch.zeros((5, q_pad, n_pad), dtype=torch.int32, device=dev)
+    chunks = staged() if staged is not None else _stream(
+        ws, chunk, n_pad, dev, verbose=verbose, label="cross counts: ")
+    s0 = 0
+    for packed in chunks:
+        gram5_cross(packed, qdev[:, s0:s0 + chunk], carry)  # in place
+        s0 += chunk
+    base = _host(carry)[:, :nq, :ws.n_samp].astype(np.int64)
+    return PairCounts(*base)
 
 
 def pca_covariance(ws, bayesian: bool = False, chunk=None,

@@ -43,10 +43,30 @@ def subset_repack(packed: np.ndarray, samp_idx: np.ndarray,
     return out
 
 
+# per packed byte: the sum of its valid genotypes and their count
+_CODES = (np.arange(256)[:, None] >> np.array([0, 2, 4, 6])) & 3
+_BYTE_SUM = np.where(_CODES < 3, _CODES, 0).sum(1).astype(np.uint8)
+_BYTE_NUM = (_CODES < 3).sum(1).astype(np.uint8)
+
+
 def snp_stats_packed(packed: np.ndarray, samp_idx: np.ndarray):
-    """Per-row (SNP) genotype sum and valid count over a sample subset."""
+    """Per-row (SNP) genotype sum and valid count over a sample subset.
+    Over every sample in order the whole bytes are summed through a
+    per-byte table, without decoding them."""
     packed = np.ascontiguousarray(packed, np.uint8)
-    dense = unpack2bit(packed, packed.shape[1] * 4)[:, np.asarray(samp_idx)]
+    samp_idx = np.asarray(samp_idx)
+    n, full = len(samp_idx), len(samp_idx) // 4
+    if n and packed.shape[1] >= -(-n // 4) and np.array_equal(
+            samp_idx, np.arange(n)):
+        body = packed[:, :full]
+        ssum = _BYTE_SUM[body].sum(1, dtype=np.int64)
+        num = _BYTE_NUM[body].sum(1, dtype=np.int64)
+        if n % 4:
+            tail = unpack2bit(packed[:, full:full + 1], 4)[:, :n % 4]
+            ssum += np.where(tail < 3, tail, 0).sum(1, dtype=np.int64)
+            num += (tail < 3).sum(1, dtype=np.int64)
+        return ssum, num
+    dense = unpack2bit(packed, packed.shape[1] * 4)[:, samp_idx]
     valid = dense < 3
     return (np.where(valid, dense, 0).sum(1).astype(np.int64),
             valid.sum(1).astype(np.int64))
@@ -73,6 +93,10 @@ class Workspace:
     @property
     def snp_id(self) -> np.ndarray:
         return self.data.snp_id[self.snp_idx]
+
+    def geno(self, snp_slice: slice = slice(None)) -> np.ndarray:
+        """Dense uint8 (n_snp_sel, n_samp_sel) genotypes for a SNP range."""
+        return self.data.geno(self.snp_idx[snp_slice], self.samp_idx)
 
     def packed_chunks(self, chunk: int, pad_bytes: int = 0,
                       start_chunk: int = 0):

@@ -5,6 +5,8 @@ JAX package (the reference, on the CPU in float64) and the PyTorch port
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 N_SNP = 3000
@@ -14,7 +16,13 @@ CHUNK = 256  # ragged: 3000 SNPs are 11 full chunks and one of 184
 def genotypes(n: int, n_snp: int = N_SNP, seed: int = 7,
               miss: float = 0.02) -> np.ndarray:
     """(n_snp, n) uint8 genotypes of two populations (Balding-Nichols,
-    F = 0.05), a duplicate pair when n > 3, and missing calls (3)."""
+    F = 0.05), a duplicate pair when n > 3, and missing calls (3). A new
+    copy on every call; each cohort is drawn once per process."""
+    return _genotypes(n, n_snp, seed, miss).copy()
+
+
+@functools.lru_cache(maxsize=None)
+def _genotypes(n: int, n_snp: int, seed: int, miss: float) -> np.ndarray:
     rng = np.random.default_rng(seed * 1000 + n)
     pop = (np.arange(n) >= n // 2).astype(np.int64)
     anc = rng.uniform(0.05, 0.95, n_snp)

@@ -153,7 +153,8 @@ def test_num_thread_is_accepted_and_ignored(name):
 
     jdata, tdata = datasets(9, n_snp=300)
     kw, field = PUBLIC[name]
-    kw = dict(kw, num_thread=2, missing_rate=0.05)
+    # chunk as the n = 2 cases above: the same JAX shapes, compiled once
+    kw = dict(kw, num_thread=2, missing_rate=0.05, chunk=CHUNK)
     want = getattr(getattr(jsr, name)(jdata, **kw), field)
     got = getattr(getattr(tsr, name)(tdata, device="cpu", **kw), field)
     if field == "eigenval":

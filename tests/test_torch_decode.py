@@ -96,9 +96,10 @@ def test_port_imports_nothing_of_jax():
             "for m in pkgutil.walk_packages(snprelate_tpu_torch.__path__, "
             "'snprelate_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "from snprelate_tpu_torch import king_ibd_selection\n"
-            "from snprelate_tpu_torch.ops.kernels import (gram5_rows, "
-            "king_screen, norm_gram_rows)\n"
+            "from snprelate_tpu_torch import king_cross, king_ibd_selection\n"
+            "from snprelate_tpu_torch.ops.kernels import (gram5_cross, "
+            "gram5_rows, king_screen, norm_gram_rows)\n"
+            "from snprelate_tpu_torch.serve import CohortService, serve\n"
             "from snprelate_tpu_torch.ops.pairwise import (basis_gram_rows, "
             "eigmix_rows, gcta_parts_rows, king_homo_rows, pca_cov_rows)\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
