@@ -12,7 +12,11 @@ and the serving path: ``king_cross`` and ``serve.CohortService`` (new
 samples related to and projected onto a cohort resident on the card),
 with the host statistics it needs (``select_snp``, ``snp_rate_freq``,
 ``samp_miss_rate``, ``get_geno``, ``summary``, ``hwe``, ``ind_inb``,
-``ind_inb_coef``, ``create_geno_set``).
+``ind_inb_coef``, ``create_geno_set``), and LD pruning, LD matrices and
+Fst: ``ld_pruning`` and ``ld_mat`` on the joint-count and LD-measure
+kernels (dense tiles below 4,096 samples, device-resident packed rows
+past it), ``fst`` on the population-count kernel, and the host
+``ld_pair`` and ``apart_selection``.
 The count and GRM analyses take ``sample_block=`` for the row-strip route,
 which keeps device memory O(block x N), and past the slab-staging budget
 (or with ``tiles=True`` / ``tile_rank=``) the super-tile route of
@@ -43,6 +47,8 @@ from .models.inbreeding import ind_inb, ind_inb_coef
 from .models.stats import (get_geno, samp_miss_rate, select_snp,
                            snp_rate_freq, summary)
 from .models.misc import create_geno_set
+from .models.ld import apart_selection, ld_mat, ld_pair, ld_pruning
+from .models.fst import fst
 
 # Reference-style aliases
 snpgdsCreateGeno = create_geno
@@ -68,5 +74,10 @@ snpgdsSelectSNP = select_snp
 snpgdsGetGeno = get_geno
 snpgdsSummary = summary
 snpgdsCreateGenoSet = create_geno_set
+snpgdsLDpair = ld_pair
+snpgdsLDMat = ld_mat
+snpgdsLDpruning = ld_pruning
+snpgdsApartSelection = apart_selection
+snpgdsFst = fst
 
 __version__ = "0.1.0"

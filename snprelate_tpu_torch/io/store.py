@@ -19,31 +19,38 @@ from typing import Any, Optional, Sequence
 import numpy as np
 
 
+# per packed byte: its four genotype codes as one little-endian word (the
+# first sample in the low byte)
+_CODE_WORDS = ((np.arange(256)[:, None] >> np.array([0, 2, 4, 6])) & 3
+               ).astype(np.uint8).view("<u4").ravel()
+
+
 def pack2bit(geno: np.ndarray) -> np.ndarray:
     """Pack a (n_snp, n_samp) uint8 genotype matrix (values 0..3) to 2-bit,
     4 samples/byte, first sample in the low bits. Pads the sample axis to a
-    multiple of 4 with missing (3)."""
+    multiple of 4 with missing (3). Works on 32-bit words of four samples:
+    byte k of a word moves to bits 2k of the packed byte."""
     geno = np.asarray(geno, dtype=np.uint8)
     n_snp, n_samp = geno.shape
     pad = (-n_samp) % 4
     if pad:
         geno = np.concatenate(
             [geno, np.full((n_snp, pad), 3, np.uint8)], axis=1)
-    g = geno.reshape(n_snp, -1, 4)
-    return (g[:, :, 0] | (g[:, :, 1] << 2) | (g[:, :, 2] << 4)
-            | (g[:, :, 3] << 6)).astype(np.uint8)
+    w = np.ascontiguousarray(geno).view("<u4") & np.uint32(0x03030303)
+    out = w >> 6
+    out |= w
+    w >>= 12
+    out |= w
+    w >>= 6
+    out |= w
+    return out.astype(np.uint8)
 
 
 def unpack2bit(packed: np.ndarray, n_samp: int) -> np.ndarray:
     """Inverse of :func:`pack2bit` -> (n_snp, n_samp) uint8."""
     packed = np.asarray(packed, dtype=np.uint8)
-    n_snp = packed.shape[0]
-    out = np.empty((n_snp, packed.shape[1] * 4), dtype=np.uint8)
-    out[:, 0::4] = packed & 3
-    out[:, 1::4] = (packed >> 2) & 3
-    out[:, 2::4] = (packed >> 4) & 3
-    out[:, 3::4] = (packed >> 6) & 3
-    return out[:, :n_samp]
+    words = np.take(_CODE_WORDS, packed)  # (n_snp, B) little-endian words
+    return words.view(np.uint8)[:, :n_samp]
 
 
 @dataclass
@@ -96,7 +103,9 @@ class SNPData:
         if snp_idx is not None:
             packed = packed[snp_idx]
         dense = unpack2bit(packed, self.n_samp)
-        if samp_idx is not None:
+        if samp_idx is not None and not (
+                len(samp_idx) == self.n_samp
+                and np.array_equal(samp_idx, np.arange(self.n_samp))):
             dense = dense[:, samp_idx]
         return dense
 

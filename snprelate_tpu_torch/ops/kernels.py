@@ -40,11 +40,18 @@ kernels its path went through.
 - ``gram5_cross`` (K8, ``csrc/gram4.cu``) replaces ops/pairwise.py's
   _cross_gram_step: the five (query x cohort) count grams of the serving
   path, the query given as code bytes
+- ``ld_joint`` (K9, ``csrc/ld.cu``) replaces ops/ld.py:_joint_tile and the
+  joint tables of ld_values_tile, band_exceeds_tile and _ld_packed_tile
+- ``ld_measure`` (K10, ``csrc/ld.cu``) replaces ops/ld.py's
+  _ld_from_joint_jnp and _em_haplo_jnp: the LD measures of joint tables
+- ``pop_counts`` (K11) replaces models/fst.py's _pop_counts step: the
+  per-population allele counts and numbers of a chunk
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -53,7 +60,9 @@ from . import _build
 from .decode import decode2bit, genotype_basis
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_F, _L = ctypes.c_float, ctypes.c_longlong
+_F, _L, _D = ctypes.c_float, ctypes.c_longlong, ctypes.c_double
+# every C argument, the trailing stream included: an untyped argument would
+# go as a 32-bit int and cut a stream pointer
 _ARGTYPES = {
     "gram4": (_P, _I, _I, _P, _P),
     "gram5_rows": (_P, _I, _I, _I, _I, _I, _P, _P),
@@ -66,13 +75,17 @@ _ARGTYPES = {
     "rand_h": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     "rand_yt": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P),
     "het_count": (_P, _I, _I, _P, _P),
-    "gram5_tile": (_P, _P, _I, _I, _P),
-    "norm_gram_tile": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I),
-    "king_screen_tile_count": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _P),
+    "gram5_tile": (_P, _P, _I, _I, _P, _P),
+    "norm_gram_tile": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P),
+    "king_screen_tile_count": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _P,
+                               _P),
     "king_screen_tile_write": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _P,
-                               _P, _L),
+                               _P, _L, _P),
     "pc_corr": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P),
     "gram5_cross": (_P, _I, _I, _P, _I, _L, _I, _P, _P),
+    "ld_joint": (_P, _I, _I, _I, _I, _I, _P, _P),
+    "ld_measure": (_P, _L, _I, _I, _D, _P, _P, _P),
+    "pop_counts": (_P, _I, _I, _P, _I, _P, _P, _P),
 }
 
 
@@ -84,7 +97,8 @@ _ENTRY_SOURCE = {"gram5_rows": "gram4", "norm_gram_rows": "norm_gram",
                  "king_screen_tile": "king_screen",
                  "king_screen_tile_count": "king_screen",
                  "king_screen_tile_write": "king_screen",
-                 "gram5_cross": "gram4"}
+                 "gram5_cross": "gram4", "ld_measure": "ld",
+                 "ld_joint": "ld"}
 
 
 def _entry(name: str):
@@ -928,6 +942,262 @@ def gram5_cross(packed: torch.Tensor, query: torch.Tensor,
 gram5_cross.launches = 0
 
 
+# ------------------------------------------------------------ K9 ld_joint
+
+def _check_ranges(packed: torch.Tensor, i0: int, si: int, j0: int,
+                  sj: int) -> int:
+    """B of a packed (rows, B) matrix, after checking it and that the row
+    ranges [i0, i0 + si) and [j0, j0 + sj) lie inside it."""
+    rows, B = _check_packed(packed)
+    for what, r0, n in (("i", i0, si), ("j", j0, sj)):
+        if r0 < 0 or n < 0 or r0 + n > rows:
+            raise ValueError(f"{what} rows [{r0}, {r0 + n}) are not inside "
+                             f"the {rows} packed rows")
+    return B
+
+
+def ld_joint_plain(packed: torch.Tensor, i0: int, si: int, j0: int,
+                   sj: int) -> torch.Tensor:
+    """Plain version of :func:`ld_joint`: decode, one-hot planes, one exact
+    product of the stacked planes (as the JAX step's matmul)."""
+    gi = decode2bit(packed[i0:i0 + si])
+    gj = decode2bit(packed[j0:j0 + sj])
+    n = gi.shape[1]
+    pi = torch.stack([gi == a for a in range(3)]).reshape(3 * si, n)
+    pj = torch.stack([gj == b for b in range(3)]).reshape(3 * sj, n)
+    c = _gram(pi.T, pj.T)  # (3 si, 3 sj)
+    return c.reshape(3, si, 3, sj).permute(0, 2, 1, 3).to(
+        torch.int32).contiguous()
+
+
+def ld_joint(packed: torch.Tensor, i0: int, si: int, j0: int,
+             sj: int) -> torch.Tensor:
+    """J (3, 3, si, sj) int32, J[a][b][i][j] = #samples with genotype a at
+    packed row i0 + i and b at row j0 + j, both valid, between two row
+    ranges of one packed (rows, N/4) matrix (0xFF padding is missing)."""
+    B = _check_ranges(packed, i0, si, j0, sj)
+    if not packed.is_cuda:
+        return ld_joint_plain(packed, i0, si, j0, sj)
+    out = torch.empty((3, 3, si, sj), dtype=torch.int32, device=packed.device)
+    _launch("ld_joint", packed.device, packed.data_ptr(), B, int(i0),
+            int(si), int(j0), int(sj), out.data_ptr())
+    ld_joint.launches += 1
+    return out
+
+
+ld_joint.launches = 0
+
+
+# ---------------------------------------------------------- K10 ld_measure
+
+# The LD measures of ld_measure, in the kernel's numbering.
+LD_METHODS = ("composite", "corr", "cov", "r", "dprime")
+DBL_EPSILON = float(np.finfo(np.float64).eps)
+
+
+def _em_haplo_t(nA_A, nA_B, nB_A, nB_B, nDH2):
+    """The JAX package's _em_haplo_jnp in torch float64, its masked loop
+    included: every EM pair starts active and freezes once it converges,
+    at most 1,000 iterations. The loop runs over the EM pairs alone (the
+    others keep the direct solution, as in JAX). Returns the four
+    haplotype proportions and the pair-iterations run (the sum over
+    iterations of active pairs)."""
+    eps = DBL_EPSILON
+    n_total = nA_A + nA_B + nB_A + nB_B + nDH2
+    direct = [nA_A / n_total, nA_B / n_total, nB_A / n_total,
+              nB_B / n_total]
+    em = (n_total > 0) & (nDH2 > 0)
+    sel = em.nonzero(as_tuple=True)
+    nA_A, nA_B, nB_A, nB_B, nDH2, n_total = (
+        t[sel] for t in (nA_A, nA_B, nB_A, nB_B, nDH2, n_total))
+
+    def plog(x):
+        return torch.log(x + eps)
+
+    init_f = 0.01
+    div = nA_A + nA_B + nB_A + nB_B + 4.0 * init_f
+    a = (nA_A + init_f) / div
+    b = (nA_B + init_f) / div
+    c = (nB_A + init_f) / div
+    d = (nB_B + init_f) / div
+    nDH = torch.floor(nDH2 / 2)
+
+    def loglik(a, b, c, d):
+        return (nA_A * plog(a) + nA_B * plog(b) + nB_A * plog(c)
+                + nB_B * plog(d) + nDH * plog(a * d + b * c))
+
+    old = loglik(a, b, c, d)
+    contol = torch.maximum(torch.abs(math.sqrt(eps) * old),
+                           torch.full_like(old, eps))
+    active = torch.ones_like(old, dtype=torch.bool)
+    iters = 0
+    for _ in range(1000):
+        live = int(active.sum())
+        if not live:
+            break
+        iters += live
+        p_ad = a * d
+        p_bc = b * c
+        ndh_ad = torch.where(p_ad + p_bc > 0, p_ad / (p_ad + p_bc) * nDH, 0.0)
+        ndh_bc = nDH - ndh_ad
+        a = torch.where(active, (nA_A + ndh_ad) / n_total, a)
+        b = torch.where(active, (nA_B + ndh_bc) / n_total, b)
+        c = torch.where(active, (nB_A + ndh_bc) / n_total, c)
+        d = torch.where(active, (nB_B + ndh_ad) / n_total, d)
+        ll = loglik(a, b, c, d)
+        conv = torch.abs(ll - old) <= contol
+        old = torch.where(active, ll, old)
+        active = active & ~conv
+    for p, v in zip(direct, (a, b, c, d)):
+        p[sel] = v
+    return tuple(direct), iters
+
+
+def ld_measure_em(J: torch.Tensor, method: str):
+    """(values float64, EM pair-iterations, haplotype proportions) of the
+    joint tables J (3, 3, ...): the JAX package's _ld_from_joint_jnp in
+    torch float64, in its expression order, over any trailing shape. The
+    iteration count is 0 and the proportions (pA_A, pA_B, pB_A, pB_B) are
+    None for the methods without EM."""
+    J = [[J[a, b].double() for b in range(3)] for a in range(3)]
+    n = sum(J[a][b] for a in range(3) for b in range(3))
+    nan = float("nan")
+    if method == "composite":
+        naa = J[0][0] + J[0][1] + J[0][2]
+        naA = J[1][0] + J[1][1] + J[1][2]
+        nAA = J[2][0] + J[2][1] + J[2][2]
+        nbb = J[0][0] + J[1][0] + J[2][0]
+        nbB = J[0][1] + J[1][1] + J[2][1]
+        nBB = J[0][2] + J[1][2] + J[2][2]
+        delta = ((J[2][2] + J[0][0] - J[0][2] - J[2][0]) / (2 * n)
+                 - (naa - nAA) * (nbb - nBB) / (2.0 * n * n))
+        pa = (2 * naa + naA) / (2 * n)
+        pA = 1 - pa
+        pAA = nAA / n
+        pb = (2 * nbb + nbB) / (2 * n)
+        pB = 1 - pb
+        pBB = nBB / n
+        DA = pAA - pA * pA
+        DB = pBB - pB * pB
+        t = (pA * pa + DA) * (pB * pb + DB)
+        return torch.where((n > 0) & (t > 0),
+                           delta / torch.sqrt(torch.where(t > 0, t, 1.0)),
+                           nan), 0, None
+    if method in ("corr", "cov"):
+        X = sum(a * J[a][b] for a in range(3) for b in range(3))
+        Y = sum(b * J[a][b] for a in range(3) for b in range(3))
+        XY = sum(a * b * J[a][b] for a in range(3) for b in range(3))
+        if method == "cov":
+            return torch.where(n > 1, (XY - X * Y / n)
+                               / torch.clamp(n - 1, min=1), nan), 0, None
+        XX = sum(a * a * J[a][b] for a in range(3) for b in range(3))
+        YY = sum(b * b * J[a][b] for a in range(3) for b in range(3))
+        c1 = XX - X * X / n
+        c2 = YY - Y * Y / n
+        val = c1 * c2
+        return torch.where((n > 0) & (val > 0),
+                           (XY - X * Y / n)
+                           / torch.sqrt(torch.where(val > 0, val, 1.0)),
+                           nan), 0, None
+    if method in ("r", "dprime"):
+        nA_A = 2 * J[2][2] + J[2][1] + J[1][2]
+        nA_B = 2 * J[2][0] + J[2][1] + J[1][0]
+        nB_A = 2 * J[0][2] + J[0][1] + J[1][2]
+        nB_B = 2 * J[0][0] + J[0][1] + J[1][0]
+        nDH2 = 2 * J[1][1]
+        hap, iters = _em_haplo_t(nA_A, nA_B, nB_A, nB_B, nDH2)
+        pA_A, pA_B, pB_A, pB_B = hap
+        pA = pA_A + pA_B
+        p_A = pA_A + pB_A
+        pB = pB_A + pB_B
+        p_B = pA_B + pB_B
+        D = pA_A - pA * p_A
+        if method == "r":
+            return D / torch.sqrt(pA * p_A * pB * p_B), iters, hap
+        return D / torch.where(D >= 0, torch.minimum(pA * p_B, pB * p_A),
+                               torch.maximum(-pA * p_A, -pB * p_B)), iters, hap
+    raise ValueError(f"unknown LD method {method!r}")
+
+
+def ld_measure_plain(J: torch.Tensor, method: str,
+                     threshold: float | None = None) -> torch.Tensor:
+    """Plain version of :func:`ld_measure`."""
+    ld = ld_measure_em(J, method)[0]
+    return ld if threshold is None else torch.abs(ld) > threshold
+
+
+def ld_measure(J: torch.Tensor, method: str,
+               threshold: float | None = None) -> torch.Tensor:
+    """The LD measure of every pair of joint tables J (3, 3, Si, Sj) int32
+    (:func:`ld_joint`), one of ``LD_METHODS``, in float64: the values
+    (Si, Sj) float64, or with ``threshold`` the band |LD| > threshold as
+    (Si, Sj) bool (a NaN compares false). NaN and inf come out where the
+    JAX package's x64 code gives them."""
+    if method not in LD_METHODS:
+        raise ValueError(f"unknown LD method {method!r}; one of "
+                         f"{LD_METHODS}")
+    if J.dim() != 4 or tuple(J.shape[:2]) != (3, 3):
+        raise ValueError("J: expected the (3, 3, Si, Sj) joint tables")
+    _check(J, "J", torch.int32, J.shape, J.device)
+    if not J.is_cuda:
+        return ld_measure_plain(J, method, threshold)
+    si, sj = J.shape[2:]
+    band = threshold is not None
+    out = torch.empty((si, sj), dtype=torch.bool if band else torch.float64,
+                      device=J.device)
+    _launch("ld_measure", J.device, J.data_ptr(), si * sj,
+            LD_METHODS.index(method), int(band),
+            float(threshold) if band else 0.0,
+            None if band else out.data_ptr(), out.data_ptr() if band else None)
+    ld_measure.launches += 1
+    return out
+
+
+ld_measure.launches = 0
+
+
+# ---------------------------------------------------------- K11 pop_counts
+
+def pop_counts_plain(packed: torch.Tensor, pop: torch.Tensor,
+                     n_pop: int):
+    """Plain version of :func:`pop_counts`: decode, then the dosage and
+    validity blocks against the one-hot population matrix in float64
+    (exact: every sum is an integer below 2^53)."""
+    geno = decode2bit(packed)
+    valid = geno < 3
+    n = geno.shape[1]
+    inside = (pop >= 0) & (pop < n_pop)
+    ind = torch.zeros((n, n_pop), dtype=torch.float64, device=pop.device)
+    ind[torch.arange(n, device=pop.device)[inside], pop[inside].long()] = 1.0
+    acnt = torch.where(valid, geno, 0).double() @ ind
+    cnt = 2.0 * (valid.double() @ ind)
+    return acnt.to(torch.int32), cnt.to(torch.int32)
+
+
+def pop_counts(packed: torch.Tensor, pop: torch.Tensor, n_pop: int):
+    """(acnt, cnt), each (S, n_pop) int32, of one packed (S, N/4) chunk:
+    acnt[s, p] the sum of the valid genotypes of population p's samples at
+    SNP s, cnt[s, p] twice their number of valid calls (0xFF padding is
+    missing). pop: (N,) int32 population codes; a code outside
+    [0, n_pop) counts nowhere."""
+    S, B = _check_packed(packed)
+    _check(pop, "pop", torch.int32, (4 * B,), packed.device)
+    n_pop = int(n_pop)
+    if n_pop < 1:
+        raise ValueError(f"n_pop {n_pop}: at least one population")
+    if not packed.is_cuda:
+        return pop_counts_plain(packed, pop, n_pop)
+    acnt = torch.empty((S, n_pop), dtype=torch.int32, device=packed.device)
+    cnt = torch.empty((S, n_pop), dtype=torch.int32, device=packed.device)
+    _launch("pop_counts", packed.device, packed.data_ptr(), S, B,
+            pop.data_ptr(), n_pop, acnt.data_ptr(), cnt.data_ptr())
+    pop_counts.launches += 1
+    return acnt, cnt
+
+
+pop_counts.launches = 0
+
+
 # the wrappers by kernel name, for code that resets or reads the counts
 KERNELS = {"gram4": gram4, "snp_stats": snp_stats, "norm_gram": norm_gram,
            "rand_h": rand_h, "rand_yt": rand_yt, "het_count": het_count,
@@ -935,6 +1205,7 @@ KERNELS = {"gram4": gram4, "snp_stats": snp_stats, "norm_gram": norm_gram,
            "king_screen": king_screen, "gram5_tile": gram5_tile,
            "norm_gram_tile": norm_gram_tile,
            "king_screen_tile": king_screen_tile, "pc_corr": pc_corr,
-           "gram5_cross": gram5_cross}
+           "gram5_cross": gram5_cross, "ld_joint": ld_joint,
+           "ld_measure": ld_measure, "pop_counts": pop_counts}
 # the source (csrc/<source>.cu) of each kernel
 SOURCES = {name: _ENTRY_SOURCE.get(name, name) for name in KERNELS}

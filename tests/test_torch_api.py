@@ -38,7 +38,8 @@ def test_signatures_match_jax():
     names = {n for n, _, _ in pairs}
     assert {"king_cross", "hwe", "ind_inb", "ind_inb_coef", "snp_rate_freq",
             "samp_miss_rate", "select_snp", "get_geno", "summary",
-            "create_geno_set", "grm", "serve", "CohortService"} <= names
+            "create_geno_set", "grm", "serve", "CohortService", "ld_pair",
+            "ld_mat", "ld_pruning", "apart_selection", "fst"} <= names
     for name, tf, jf in pairs:
         tp = list(inspect.signature(tf).parameters.values())
         jp = list(inspect.signature(jf).parameters.values())
@@ -54,7 +55,7 @@ def test_signatures_match_jax():
             assert a.kind == b.kind, (name, a.name)
             assert _same_default(a.default, b.default), (name, a.name)
     aliases = [n for n in dir(tsr) if n.startswith("snpgds")]
-    assert len(aliases) == 23
+    assert len(aliases) == 28
     for n in aliases:
         assert getattr(tsr, n).__name__ == getattr(jsr, n).__name__, n
 
@@ -93,3 +94,24 @@ def test_randomized_pca_two_samples():
     assert np.isnan(want.eigenval[:2]).all()
     assert np.isnan(want.varprop[:2]).all()
     assert np.isnan(want.eigenvect).all()
+
+
+def test_c_entries_match_argtypes():
+    """Every C entry of csrc/ has as many parameters as its ctypes
+    argtypes, the trailing stream included (ctypes passes an untyped
+    argument as a 32-bit int, which cuts a stream pointer)."""
+    import glob
+    import os
+    import re
+
+    from snprelate_tpu_torch.ops import kernels as K
+
+    src = "".join(open(f).read() for f in glob.glob(os.path.join(
+        os.path.dirname(K.__file__), "..", "csrc", "*.cu")))
+    for name, argtypes in K._ARGTYPES.items():
+        m = re.search(r'extern "C" int ' + name + r"_launch\((.*?)\)\s*\{",
+                      src, re.S)
+        assert m, name
+        params = [a for a in m.group(1).split(",") if a.strip()]
+        assert len(params) == len(argtypes), name
+        assert params[-1].split()[-1] == "*stream", name
