@@ -16,7 +16,13 @@ with the host statistics it needs (``select_snp``, ``snp_rate_freq``,
 Fst: ``ld_pruning`` and ``ld_mat`` on the joint-count and LD-measure
 kernels (dense tiles below 4,096 samples, device-resident packed rows
 past it), ``fst`` on the population-count kernel, and the host
-``ld_pair`` and ``apart_selection``.
+``ld_pair`` and ``apart_selection``, and maximum-likelihood IBD and
+clustering: ``ibd_mle`` (EM, downhill simplex, Jacquard) and
+``ibd_mle_loglik`` on the per-pair EM, simplex and log-likelihood
+kernels, the host ``pair_ibd``, ``pair_ibd_mle_loglik`` and
+``ibd_selection``, ``hcluster``, ``cut_tree`` (its permutation sums of
+large merges on the permutation cross-sum kernel), ``draw_tree``,
+``admix_prop``, ``admix_plot`` and ``admix_table``.
 The count and GRM analyses take ``sample_block=`` for the row-strip route,
 which keeps device memory O(block x N), and past the slab-staging budget
 (or with ``tiles=True`` / ``tile_rank=``) the super-tile route of
@@ -49,6 +55,10 @@ from .models.stats import (get_geno, samp_miss_rate, select_snp,
 from .models.misc import create_geno_set
 from .models.ld import apart_selection, ld_mat, ld_pair, ld_pruning
 from .models.fst import fst
+from .models.ibd_mle import (ibd_mle, ibd_mle_loglik, ibd_selection, pair_ibd,
+                             pair_ibd_mle_loglik)
+from .models.cluster import (admix_plot, admix_prop, admix_table, cut_tree,
+                             draw_tree, hcluster)
 
 # Reference-style aliases
 snpgdsCreateGeno = create_geno
@@ -79,5 +89,16 @@ snpgdsLDMat = ld_mat
 snpgdsLDpruning = ld_pruning
 snpgdsApartSelection = apart_selection
 snpgdsFst = fst
+snpgdsIBDMLE = ibd_mle
+snpgdsIBDMLELogLik = ibd_mle_loglik
+snpgdsPairIBD = pair_ibd
+snpgdsPairIBDMLELogLik = pair_ibd_mle_loglik
+snpgdsIBDSelection = ibd_selection
+snpgdsHCluster = hcluster
+snpgdsCutTree = cut_tree
+snpgdsDrawTree = draw_tree
+snpgdsAdmixProp = admix_prop
+snpgdsAdmixPlot = admix_plot
+snpgdsAdmixTable = admix_table
 
 __version__ = "0.1.0"

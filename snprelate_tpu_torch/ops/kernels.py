@@ -46,6 +46,15 @@ kernels its path went through.
   _ld_from_joint_jnp and _em_haplo_jnp: the LD measures of joint tables
 - ``pop_counts`` (K11) replaces models/fst.py's _pop_counts step: the
   per-population allele counts and numbers of a chunk
+- ``ibd_em`` (K12, ``csrc/ibd_mle.cu``) replaces models/ibd_mle.py's em3
+  (with _loglik_dev and _em_loop_dev) and em9: the per-pair EM of the
+  3-state and the Jacquard (9-state) IBD likelihood
+- ``ibd_simplex`` (K13, ``csrc/ibd_mle.cu``) replaces models/ibd_mle.py's
+  nm: the per-pair downhill simplex of the 3-state likelihood
+- ``ibd_loglik`` (K14, ``csrc/ibd_mle.cu``) replaces ibd_mle_loglik's
+  ll_tile: the log-likelihood of given (k0, k1, k2) per pair
+- ``perm_cross`` (K15) replaces models/cluster.py's _perm_cross_dev: the
+  between-group sums of every permutation split of cut_tree
 """
 
 from __future__ import annotations
@@ -58,6 +67,8 @@ import torch
 
 from . import _build
 from .decode import decode2bit, genotype_basis
+from .ibd import (candidates, ibd_em_plain, ibd_loglik_plain,
+                  ibd_simplex_plain)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _F, _L, _D = ctypes.c_float, ctypes.c_longlong, ctypes.c_double
@@ -86,6 +97,12 @@ _ARGTYPES = {
     "ld_joint": (_P, _I, _I, _I, _I, _I, _P, _P),
     "ld_measure": (_P, _L, _I, _I, _D, _P, _P, _P),
     "pop_counts": (_P, _I, _I, _P, _I, _P, _P, _P),
+    "ibd_em": (_P, _P, _I, _I, _P, _P, _I, _P, _I, _D, _P, _I, _P, _P, _P,
+               _P),
+    "ibd_simplex": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _D, _P, _I, _P, _P,
+                    _P, _P, _P),
+    "ibd_loglik": (_P, _P, _I, _P, _P, _I, _P, _P, _P),
+    "perm_cross": (_P, _P, _I, _I, _P, _P, _P),
 }
 
 
@@ -98,7 +115,8 @@ _ENTRY_SOURCE = {"gram5_rows": "gram4", "norm_gram_rows": "norm_gram",
                  "king_screen_tile_count": "king_screen",
                  "king_screen_tile_write": "king_screen",
                  "gram5_cross": "gram4", "ld_measure": "ld",
-                 "ld_joint": "ld"}
+                 "ld_joint": "ld", "ibd_em": "ibd_mle",
+                 "ibd_simplex": "ibd_mle", "ibd_loglik": "ibd_mle"}
 
 
 def _entry(name: str):
@@ -1198,6 +1216,170 @@ def pop_counts(packed: torch.Tensor, pop: torch.Tensor, n_pop: int):
 pop_counts.launches = 0
 
 
+# ------------------------------------ K12 ibd_em, K13 ibd_simplex, K14 ibd_loglik
+
+def _check_ibd(table: torch.Tensor, gT: torch.Tensor, i: torch.Tensor,
+               j: torch.Tensor, states=(3, 9)) -> tuple[int, int, int]:
+    """(S, K, B) of a staged Pr(IBS | IBD) table (S, 4, 4, K) float64, the
+    staged codes gT (N, S) uint8 (at most 3) and the pair indices i, j
+    (B,) int64 inside [0, N), after checking them."""
+    if table.dim() != 4 or tuple(table.shape[1:3]) != (4, 4) \
+            or table.shape[3] not in states:
+        raise ValueError(f"table: expected (S, 4, 4, K) with K in {states}, "
+                         f"got {tuple(table.shape)}")
+    S, K = table.shape[0], table.shape[3]
+    dev = table.device
+    _check(table, "table", torch.float64, table.shape, dev)
+    if gT.dim() != 2 or gT.shape[1] != S:
+        raise ValueError(f"gT: expected (N, {S}), got {tuple(gT.shape)}")
+    _check(gT, "gT", torch.uint8, gT.shape, dev)
+    if i.dim() != 1:
+        raise ValueError("i: expected a 1-d index tensor")
+    B = i.shape[0]
+    _check(i, "i", torch.int64, (B,), dev)
+    _check(j, "j", torch.int64, (B,), dev)
+    if B and (min(int(i.min()), int(j.min())) < 0
+              or max(int(i.max()), int(j.max())) >= gT.shape[0]):
+        raise ValueError(f"pair indices outside the {gT.shape[0]} samples")
+    if gT.numel() and int(gT.max()) > 3:
+        raise ValueError("gT: genotype codes must be 0, 1, 2 or 3")
+    return S, K, B
+
+
+def _padded(table: torch.Tensor) -> torch.Tensor:
+    """The kernels' table layout (S, 16, KP): each (SNP, code) row padded
+    with zeros to whole 32-byte sectors (KP = 4 for K = 3, 12 for K = 9),
+    so a thread's row costs the L2 no more sectors than it holds."""
+    S, K = table.shape[0], table.shape[-1]
+    out = torch.zeros((S, 16, 4 if K == 3 else 12), dtype=torch.float64,
+                      device=table.device)
+    out[:, :, :K] = table.reshape(S, 16, K)
+    return out
+
+
+def ibd_em(table: torch.Tensor, gT: torch.Tensor, i: torch.Tensor,
+           j: torch.Tensor, init: torch.Tensor, max_iter: int,
+           reltol: float, adjust: bool = False):
+    """(params (B, K) float64, loglik (B,) float64, niter (B,) int32) of
+    the EM of each pair (i[b], j[b]) from init (B, K) (the JAX package's
+    em3 for K = 3, with the relatedness adjust when ``adjust``; em9 for the
+    Jacquard table, K = 9): iterated until |ll - old_ll| <= reltol (|ll0|
+    + |reltol|) or max_iter + 1 trips. One block a pair on the card."""
+    S, K, B = _check_ibd(table, gT, i, j)
+    _check(init, "init", torch.float64, (B, K), table.device)
+    if adjust and K != 3:
+        raise ValueError("the relatedness adjust is for the 3-state table")
+    if not table.is_cuda:
+        return ibd_em_plain(table, gT, i, j, init, max_iter, reltol, adjust)
+    p = torch.empty((B, K), dtype=torch.float64, device=table.device)
+    ll = torch.empty(B, dtype=torch.float64, device=table.device)
+    niter = torch.empty(B, dtype=torch.int32, device=table.device)
+    tab = _padded(table)
+    cand = candidates(table.device) if adjust else None
+    if B:
+        _launch("ibd_em", table.device, tab.data_ptr(), gT.data_ptr(), S, K,
+                i.data_ptr(), j.data_ptr(), B, init.data_ptr(),
+                int(max_iter), float(reltol),
+                None if cand is None else cand.data_ptr(),
+                0 if cand is None else len(cand), p.data_ptr(),
+                ll.data_ptr(), niter.data_ptr())
+        ibd_em.launches += 1
+    return p, ll, niter
+
+
+ibd_em.launches = 0
+
+
+def ibd_simplex(table: torch.Tensor, gT: torch.Tensor, i: torch.Tensor,
+                j: torch.Tensor, k0: torch.Tensor, k1: torch.Tensor,
+                max_iter: int, reltol: float, adjust: bool = False):
+    """(k0, k1, loglik float64, nfunk int32), each (B,), of the downhill
+    simplex (Nelder-Mead on -loglik) of each pair from (k0, k1) (B,)
+    float64 over the 3-state table: the JAX package's nm, with the
+    relatedness adjust when ``adjust``. One block a pair on the card."""
+    S, _, B = _check_ibd(table, gT, i, j, states=(3,))
+    _check(k0, "k0", torch.float64, (B,), table.device)
+    _check(k1, "k1", torch.float64, (B,), table.device)
+    if not table.is_cuda:
+        return ibd_simplex_plain(table, gT, i, j, k0, k1, max_iter, reltol,
+                                 adjust)
+    out = [torch.empty(B, dtype=torch.float64, device=table.device)
+           for _ in range(3)]
+    nfunk = torch.empty(B, dtype=torch.int32, device=table.device)
+    tab = _padded(table)
+    cand = candidates(table.device) if adjust else None
+    if B:
+        _launch("ibd_simplex", table.device, tab.data_ptr(), gT.data_ptr(),
+                S, i.data_ptr(), j.data_ptr(), B, k0.data_ptr(),
+                k1.data_ptr(), int(max_iter), float(reltol),
+                None if cand is None else cand.data_ptr(),
+                0 if cand is None else len(cand),
+                *(t.data_ptr() for t in out), nfunk.data_ptr())
+        ibd_simplex.launches += 1
+    return (*out, nfunk)
+
+
+ibd_simplex.launches = 0
+
+
+def ibd_loglik(table: torch.Tensor, gT: torch.Tensor, i: torch.Tensor,
+               j: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(B,) float64 log-likelihood of each pair (i[b], j[b]) under the
+    IBD coefficients k[b] = (k0, k1, k2) (B, 3) float64 over the 3-state
+    table: the JAX package's ll_tile, -inf where an observed state has
+    probability 0. One warp a pair on the card."""
+    S, _, B = _check_ibd(table, gT, i, j, states=(3,))
+    _check(k, "k", torch.float64, (B, 3), table.device)
+    if not table.is_cuda:
+        return ibd_loglik_plain(table, gT, i, j, k)
+    out = torch.empty(B, dtype=torch.float64, device=table.device)
+    tab = _padded(table)
+    if B:
+        _launch("ibd_loglik", table.device, tab.data_ptr(), gT.data_ptr(),
+                S, i.data_ptr(), j.data_ptr(), B, k.data_ptr(),
+                out.data_ptr())
+        ibd_loglik.launches += 1
+    return out
+
+
+ibd_loglik.launches = 0
+
+
+# ---------------------------------------------------------- K15 perm_cross
+
+def perm_cross_plain(u: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`perm_cross`: the JAX step's product and
+    epilogue in float64."""
+    uf = u.to(torch.float64)
+    return ((uf @ d) * (1.0 - uf)).sum(1)
+
+
+def perm_cross(u: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """(P,) float64 rowsum((U D) * (1 - U)) of the 0/1 split indicators
+    U (P, m) uint8 and the distances D (m, m) float64: for every
+    permutation split p, the sum of D[a, b] over a in its first group and
+    b in its second. The card sums the per-column-tile partials in a
+    fixed order, so the result is bitwise repeatable."""
+    if u.dim() != 2 or d.dim() != 2:
+        raise ValueError("perm_cross: expected U (P, m) and D (m, m)")
+    P, m = u.shape
+    _check(u, "U", torch.uint8, (P, m), u.device)
+    _check(d, "D", torch.float64, (m, m), u.device)
+    if not u.is_cuda:
+        return perm_cross_plain(u, d)
+    out = torch.empty(P, dtype=torch.float64, device=u.device)
+    part = torch.empty((P, max(-(-m // 64), 1)), dtype=torch.float64,
+                       device=u.device)
+    if P:
+        _launch("perm_cross", u.device, u.data_ptr(), d.data_ptr(), P, m,
+                part.data_ptr(), out.data_ptr())
+        perm_cross.launches += 1
+    return out
+
+
+perm_cross.launches = 0
+
+
 # the wrappers by kernel name, for code that resets or reads the counts
 KERNELS = {"gram4": gram4, "snp_stats": snp_stats, "norm_gram": norm_gram,
            "rand_h": rand_h, "rand_yt": rand_yt, "het_count": het_count,
@@ -1206,6 +1388,8 @@ KERNELS = {"gram4": gram4, "snp_stats": snp_stats, "norm_gram": norm_gram,
            "norm_gram_tile": norm_gram_tile,
            "king_screen_tile": king_screen_tile, "pc_corr": pc_corr,
            "gram5_cross": gram5_cross, "ld_joint": ld_joint,
-           "ld_measure": ld_measure, "pop_counts": pop_counts}
+           "ld_measure": ld_measure, "pop_counts": pop_counts,
+           "ibd_em": ibd_em, "ibd_simplex": ibd_simplex,
+           "ibd_loglik": ibd_loglik, "perm_cross": perm_cross}
 # the source (csrc/<source>.cu) of each kernel
 SOURCES = {name: _ENTRY_SOURCE.get(name, name) for name in KERNELS}

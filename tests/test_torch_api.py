@@ -39,7 +39,10 @@ def test_signatures_match_jax():
     assert {"king_cross", "hwe", "ind_inb", "ind_inb_coef", "snp_rate_freq",
             "samp_miss_rate", "select_snp", "get_geno", "summary",
             "create_geno_set", "grm", "serve", "CohortService", "ld_pair",
-            "ld_mat", "ld_pruning", "apart_selection", "fst"} <= names
+            "ld_mat", "ld_pruning", "apart_selection", "fst", "ibd_mle",
+            "ibd_mle_loglik", "pair_ibd", "pair_ibd_mle_loglik",
+            "ibd_selection", "hcluster", "cut_tree", "draw_tree",
+            "admix_prop", "admix_plot", "admix_table"} <= names
     for name, tf, jf in pairs:
         tp = list(inspect.signature(tf).parameters.values())
         jp = list(inspect.signature(jf).parameters.values())
@@ -55,7 +58,7 @@ def test_signatures_match_jax():
             assert a.kind == b.kind, (name, a.name)
             assert _same_default(a.default, b.default), (name, a.name)
     aliases = [n for n in dir(tsr) if n.startswith("snpgds")]
-    assert len(aliases) == 28
+    assert len(aliases) == 39
     for n in aliases:
         assert getattr(tsr, n).__name__ == getattr(jsr, n).__name__, n
 
