@@ -1,5 +1,6 @@
 // K1 gram4: fused 2-bit decode + reduced-basis count grams, its strip mode
-// K1r gram5_rows and its tile mode K1t gram5_tile.
+// K1r gram5_rows, its tile mode K1t gram5_tile, its cross mode K8
+// gram5_cross and its plane mode K16 gram6.
 //
 // K1 replaces snprelate_tpu/ops/pairwise.py:_gram4_step (decode2bit ->
 // genotype_basis -> _sym_grams4). For one packed SNP chunk, (S, N/4) bytes
@@ -39,6 +40,14 @@
 // V, H and D once per stage in shared memory, with one 8-warp block over
 // 64 queries, measured slower on the card at q = 8 and 64 (160 registers
 // a thread, so one such block per SM).
+//
+// K16 gram6 replaces _gram6_step (snprelate_tpu/ops/pairwise.py:303,
+// decode2bit -> genotype_planes -> _sym_grams): the six one-hot plane
+// cross-grams I_a'I_b, (a, b) in (0,0), (0,1), (0,2), (1,1), (1,2), (2,2),
+// I_a = [g == a] (missing, code 3, has all-zero planes), of one packed
+// chunk, added into an int32 (6, N, N) carry. It is K1's tile code with the
+// planes formed in registers in place of the basis, over the full square
+// (the cross-grams with a != b are not symmetric).
 //
 // What bounds them on the card: int8 tensor-core operations, 2*S per
 // output entry and gram, against S*N/4 bytes of input and the int32 carry
@@ -90,14 +99,38 @@ __device__ __forceinline__ void basis(uint32_t w, uint32_t &v, uint32_t &h,
   d = two | (zero * 0xFFu);         // 0/1 bytes times 255: no carries
 }
 
+// Four genotype codes -> the one-hot plane bytes I0, I1 and I2 of the
+// same four genotypes (missing: all three 0).
+__device__ __forceinline__ void planes(uint32_t w, uint32_t &p0,
+                                       uint32_t &p1, uint32_t &p2) {
+  const uint32_t ones = 0x01010101u;
+  const uint32_t lo = w & ones, hi = (w >> 1) & ones;
+  p0 = ones ^ (lo | hi);  // code == 0
+  p1 = lo & ~hi;          // code == 1
+  p2 = hi & ~lo;          // code == 2
+}
+
+// The three operand bytes of four codes: the planes for the six plane
+// grams (NG == 6), else the basis V, H, D.
+template <int NG>
+__device__ __forceinline__ void operand(uint32_t w, uint32_t &x, uint32_t &y,
+                                        uint32_t &z) {
+  if constexpr (NG == 6)
+    planes(w, x, y, z);
+  else
+    basis(w, x, y, z);
+}
+
 __device__ __forceinline__ uint32_t lds32(const uint8_t *p) {
   return *reinterpret_cast<const uint32_t *>(p);
 }
 
 // The grams of one 64 x 64 tile (rows from sample i0 of pa, columns from
 // sample j0 of pb, two (S, B) packed chunks that may be the same) over the
-// whole chunk, into acc: V'V, H'H, D'D, H'V and, with NG == 5, V'H. Called
-// by all THREADS threads of the block.
+// whole chunk, into acc: V'V, H'H, D'D, H'V and, with NG == 5, V'H; with
+// NG == 6 the plane grams I0'I0, I0'I1, I0'I2, I1'I1, I1'I2, I2'I2 (av, ah
+// and ad then hold the planes 0, 1 and 2). Called by all THREADS threads
+// of the block.
 template <int NG>
 __device__ __forceinline__ void tile_grams(const uint8_t *__restrict__ pa,
                                            const uint8_t *__restrict__ pb,
@@ -150,26 +183,35 @@ __device__ __forceinline__ void tile_grams(const uint8_t *__restrict__ pa,
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
         const uint8_t *p = &sm[0][wm * 32 + m * 16 + g][kk + 4 * t];
-        basis(lds32(p), av[m][0], ah[m][0], ad[m][0]);
-        basis(lds32(p + 8 * LDS), av[m][1], ah[m][1], ad[m][1]);
-        basis(lds32(p + 16), av[m][2], ah[m][2], ad[m][2]);
-        basis(lds32(p + 8 * LDS + 16), av[m][3], ah[m][3], ad[m][3]);
+        operand<NG>(lds32(p), av[m][0], ah[m][0], ad[m][0]);
+        operand<NG>(lds32(p + 8 * LDS), av[m][1], ah[m][1], ad[m][1]);
+        operand<NG>(lds32(p + 16), av[m][2], ah[m][2], ad[m][2]);
+        operand<NG>(lds32(p + 8 * LDS + 16), av[m][3], ah[m][3], ad[m][3]);
       }
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         const uint8_t *p = &sm[1][wn * 16 + n * 8 + g][kk + 4 * t];
-        basis(lds32(p), bv[n][0], bh[n][0], bd[n][0]);
-        basis(lds32(p + 16), bv[n][1], bh[n][1], bd[n][1]);
+        operand<NG>(lds32(p), bv[n][0], bh[n][0], bd[n][0]);
+        operand<NG>(lds32(p + 16), bv[n][1], bh[n][1], bd[n][1]);
       }
 #pragma unroll
       for (int m = 0; m < 2; ++m)
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
-          mma_s8(acc[0][m][n], av[m], bv[n]);  // V'V
-          mma_s8(acc[1][m][n], ah[m], bh[n]);  // H'H
-          mma_s8(acc[2][m][n], ad[m], bd[n]);  // D'D
-          mma_s8(acc[3][m][n], ah[m], bv[n]);  // H'V
-          if constexpr (NG == 5) mma_s8(acc[4][m][n], av[m], bh[n]);  // V'H
+          if constexpr (NG == 6) {
+            mma_s8(acc[0][m][n], av[m], bv[n]);  // I0'I0
+            mma_s8(acc[1][m][n], av[m], bh[n]);  // I0'I1
+            mma_s8(acc[2][m][n], av[m], bd[n]);  // I0'I2
+            mma_s8(acc[3][m][n], ah[m], bh[n]);  // I1'I1
+            mma_s8(acc[4][m][n], ah[m], bd[n]);  // I1'I2
+            mma_s8(acc[5][m][n], ad[m], bd[n]);  // I2'I2
+          } else {
+            mma_s8(acc[0][m][n], av[m], bv[n]);  // V'V
+            mma_s8(acc[1][m][n], ah[m], bh[n]);  // H'H
+            mma_s8(acc[2][m][n], ad[m], bd[n]);  // D'D
+            mma_s8(acc[3][m][n], ah[m], bv[n]);  // H'V
+            if constexpr (NG == 5) mma_s8(acc[4][m][n], av[m], bh[n]);  // V'H
+          }
         }
     }
   }
@@ -217,6 +259,18 @@ gram4_kernel(const uint8_t *__restrict__ packed, int S, int B,
   int acc[4][2][2][4];  // [gram][m tile][n tile][fragment]
   tile_grams<4>(packed, packed, S, B, i0, j0, sm, acc);
   add_tile<4>(carry, N * N, N, i0, j0, acc);
+}
+
+// K16: block (x, y) owns rows 64y and columns 64x of all six plane grams.
+__global__ void __launch_bounds__(THREADS)
+gram6_kernel(const uint8_t *__restrict__ packed, int S, int B,
+             int *__restrict__ carry) {
+  __shared__ __align__(16) uint8_t sm[2][TILE][LDS];
+  const long long N = 4LL * B;
+  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
+  int acc[6][2][2][4];
+  tile_grams<6>(packed, packed, S, B, i0, j0, sm, acc);
+  add_tile<6>(carry, N * N, N, i0, j0, acc);
 }
 
 // The strip: block (x, y) owns rows row0 + 64y and columns 64x.
@@ -365,6 +419,19 @@ extern "C" int gram4_launch(const void *packed, int S, int B, void *carry,
   gram4_kernel<<<dim3(tiles, tiles), THREADS, 0,
                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t *>(packed), S, B, static_cast<int *>(carry));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// packed: (S, B) uint8, B % 16 == 0; carry: (6, 4B, 4B) int32, the plane
+// grams in _SYM_PAIRS order, updated in place. Launches on `stream`;
+// returns cudaGetLastError().
+extern "C" int gram6_launch(const void *packed, int S, int B, void *carry,
+                            void *stream) {
+  const int tiles = 4 * B / TILE;
+  if (tiles > 0 && S > 0)
+    gram6_kernel<<<dim3(tiles, tiles), THREADS, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t *>(packed), S, B, static_cast<int *>(carry));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -59,7 +59,8 @@ def indiv_beta(data, sample_id=None, snp_id=None, autosome_only=True,
     slab-staging budget the super-tile engine. tile_rank=(rank, world):
     rank run of the multi-host tile partition into checkpoint= (returns
     None); a tile_rank=None run over the same checkpoint assembles it.
-    mesh= and tile_devices= raise NotImplementedError (ROADMAP item 12).
+    mesh= (``parallel.mesh.DeviceMesh``) shards the counts over a mesh;
+    tile_devices= deals whole super tiles over the given devices.
     num_thread is accepted and ignored. device:
     None = the CUDA card; "cpu" runs the plain versions."""
     if method != "weighted":
@@ -96,14 +97,14 @@ def indiv_beta_rel(beta: IndivBetaResult, beta_rel: float, verbose=False):
 
 
 def beta_grm_matrix(ws, chunk=None, verbose=False, sample_block=None,
-                    device=None):
+                    mesh=None, device=None):
     """GRM method='IndivBeta' (CalcIndivBetaGRM, genBeta.cpp:263-357):
     min-rescaled beta matrix with diagonal mapped to (x-min)*scale/2 + 1.
     Returns (grm, avg_val): avg_val is the pre-transform upper-triangle
     average the reference stashes for snpgdsMergeGRM (grm_avg_value,
     genPCA.cpp:1605)."""
     c = pair_counts(ws, chunk=chunk, verbose=verbose,
-                    sample_block=sample_block, device=device)
+                    sample_block=sample_block, mesh=mesh, device=device)
     beta, avg = _beta_raw(c, inbreeding=True)
     mn = float(np.min(beta))
     scale = 2.0 / (1.0 - mn)

@@ -37,7 +37,8 @@ def diss(data, sample_id=None, snp_id=None, autosome_only=True,
     slab-staging budget the super-tile engine. tile_rank=(rank, world):
     rank run of the multi-host tile partition into checkpoint= (returns
     None); a tile_rank=None run over the same checkpoint assembles it.
-    mesh= and tile_devices= raise NotImplementedError (ROADMAP item 12).
+    mesh= (``parallel.mesh.DeviceMesh``) shards the parts over a mesh;
+    tile_devices= deals whole super tiles over the given devices.
     num_thread is accepted and ignored. device: None = the CUDA card;
     "cpu" runs the plain versions."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,

@@ -20,10 +20,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..ops.pairwise import (TileCheckpointer, effective_sample_block,
-                            gcta_grm_parts, gcta_parts_rows,
-                            past_staging_budget, pca_cov_rows,
-                            pca_covariance, refuse_routes, resolve_row_chunk)
+from ..ops.pairwise import (TileCheckpointer, _mesh_row_tools,
+                            effective_sample_block, gcta_grm_parts,
+                            gcta_parts_rows, past_staging_budget,
+                            pca_cov_rows, pca_covariance, resolve_row_chunk)
 from ..utils.device import resolve_device
 from ..utils.packed import PackedSymmetric
 from ..workspace import init_workspace
@@ -38,30 +38,41 @@ class GRMResult:
     avg_val: float = None
 
 
-def _gcta(ws, chunk, checkpoint, verbose, device):
-    cov, vgram, _nlocus = gcta_grm_parts(ws, chunk=chunk,
-                                         checkpoint=checkpoint,
-                                         verbose=verbose, device=device)
+def _gcta(ws, chunk, checkpoint, verbose, device, mesh=None):
+    if mesh is not None:
+        from ..parallel.mesh import sharded_gcta_parts
+
+        cov, vgram, _nlocus = sharded_gcta_parts(ws, mesh, chunk=chunk)
+    else:
+        cov, vgram, _nlocus = gcta_grm_parts(ws, chunk=chunk,
+                                             checkpoint=checkpoint,
+                                             verbose=verbose, device=device)
     denom = 2.0 * vgram  # vgram = #both-valid at polymorphic loci
     with np.errstate(divide="ignore", invalid="ignore"):
         return cov / denom
 
 
-def _auto_row_tiling(n: int, method: str) -> bool:
-    """GCTA and Eigenstrat switch to the row-strip engine once the
-    device-resident n x n carries (~2.5 n^2 words) pass 6e9 bytes (the
-    JAX package's 16 GB threshold, models/grm.py:50)."""
-    return method in ("GCTA", "Eigenstrat") and 2.5 * 4 * float(n) * n > 6e9
+def _auto_row_tiling(n: int, method: str, mesh) -> bool:
+    """Single-device GCTA and Eigenstrat switch to the row-strip engine
+    once the device-resident n x n carries (~2.5 n^2 words) pass 6e9 bytes
+    (the JAX package's 16 GB threshold, models/grm.py:50); a mesh keeps
+    the sharded full square, as in the JAX package."""
+    return (mesh is None and method in ("GCTA", "Eigenstrat")
+            and 2.5 * 4 * float(n) * n > 6e9)
 
 
-def _grm_rows(ws, method, sample_block, chunk, checkpoint, verbose, device):
-    """GCTA or Eigenstrat GRM from row strips; checkpoint= saves the
-    completed GRM rows after every strip (meta tag 41 or 42, with the
-    resolved chunk) and a rerun resumes at the first missing strip."""
+def _grm_rows(ws, method, sample_block, chunk, checkpoint, verbose, device,
+              mesh=None):
+    """GCTA or Eigenstrat GRM from row strips (split over the mesh's
+    devices with mesh=); checkpoint= saves the completed GRM rows after
+    every strip (meta tag 41 or 42, with the effective block, padded by
+    the mesh's device count, and the resolved chunk) and a rerun resumes
+    at the first missing strip."""
     n = ws.n_samp
     mat = np.empty((n, n))
     tag = 41 if method == "GCTA" else 42
-    sample_block = effective_sample_block(ws, sample_block, 128,
+    ndev = _mesh_row_tools(mesh, device)[0]
+    sample_block = effective_sample_block(ws, sample_block, 128 * ndev,
                                           8 if method == "GCTA" else 4)
     chunk = resolve_row_chunk(ws, sample_block, chunk, device)
     tck = TileCheckpointer(checkpoint, meta=(tag, ws.n_snp, n,
@@ -71,14 +82,16 @@ def _grm_rows(ws, method, sample_block, chunk, checkpoint, verbose, device):
     if method == "GCTA":
         for r0, nr, cov, vgr, _nl in gcta_parts_rows(
                 ws, sample_block=sample_block, chunk=chunk,
-                start_row=start_row, verbose=verbose, device=device):
+                start_row=start_row, verbose=verbose, mesh=mesh,
+                device=device):
             with np.errstate(divide="ignore", invalid="ignore"):
                 mat[r0:r0 + nr] = cov / (2.0 * vgr)
             tck.save_tile(r0, mat[r0:r0 + nr])
     else:
         for r0, nr, cov in pca_cov_rows(ws, sample_block=sample_block,
                                         chunk=chunk, start_row=start_row,
-                                        verbose=verbose, device=device):
+                                        verbose=verbose, mesh=mesh,
+                                        device=device):
             mat[r0:r0 + nr] = cov
             tck.save_tile(r0, mat[r0:r0 + nr])
         mat *= (n - 1) / float(np.trace(mat))
@@ -104,8 +117,10 @@ def grm(data, sample_id=None, snp_id=None, autosome_only=True,
     strips. tile_rank=(rank, world) (GCTA/Eigenstrat only) computes this
     rank's tile rows into checkpoint= and returns None; a later run over
     the same checkpoint (a tile-grid meta, tag 71 or 72) assembles the
-    GRM without recomputing. mesh= and tile_devices= raise
-    NotImplementedError (ROADMAP item 12). out_fn= (the GDS artifact, with
+    GRM without recomputing. mesh= (``parallel.mesh.DeviceMesh``) runs
+    the sharded full square or splits the strips and tiles over the mesh;
+    tile_devices= deals whole super tiles over the given devices (implies
+    tiles=True). out_fn= (the GDS artifact, with
     out_prec and out_compress) needs the GDS writer, which is not ported,
     and raises. num_thread is accepted and ignored. device: None = the
     CUDA card; "cpu" runs the plain versions."""
@@ -118,17 +133,17 @@ def grm(data, sample_id=None, snp_id=None, autosome_only=True,
         method = "EIGMIX"
     if method not in ("GCTA", "Eigenstrat", "Corr", "EIGMIX", "IndivBeta"):
         raise ValueError("Invalid 'method'!")
-    refuse_routes("grm", mesh, tile_devices)
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
     n = ws.n_samp
     row_capable = method in ("GCTA", "Eigenstrat")
-    if sample_block is None and _auto_row_tiling(n, method):
+    if sample_block is None and _auto_row_tiling(n, method, mesh):
         sample_block = 4096
-    if tile_rank is not None:
+    if tile_devices is not None or tile_rank is not None:
         tiles = True
         if sample_block is None:
             sample_block = 4096  # any value: tile_group drives the size
+    if tile_rank is not None:
         if not row_capable:
             raise ValueError("tile_rank= needs the super-tile engine "
                              "(method GCTA or Eigenstrat)")
@@ -149,24 +164,32 @@ def grm(data, sample_id=None, snp_id=None, autosome_only=True,
         from ..ops.tiles import grm_tiled
 
         mat = grm_tiled(ws, tile_group, method=method, chunk=chunk,
-                        checkpoint=checkpoint, verbose=verbose,
-                        tile_rank=tile_rank, device=dev)
+                        checkpoint=checkpoint, verbose=verbose, mesh=mesh,
+                        devices=tile_devices, tile_rank=tile_rank,
+                        device=dev)
         if mat is None:  # a rank run: its tiles are in checkpoint=
             return None
     elif sample_block is not None and row_capable:
         mat = _grm_rows(ws, method, sample_block, chunk, checkpoint, verbose,
-                        dev)
+                        dev, mesh)
     elif method == "EIGMIX":
         from .eigmix import eigmix_ibd_matrix
         mat = 2.0 * eigmix_ibd_matrix(ws, chunk=chunk, verbose=verbose,
-                                      sample_block=sample_block, device=dev)
+                                      sample_block=sample_block, mesh=mesh,
+                                      device=dev)
     elif method == "IndivBeta":
         from .beta import beta_grm_matrix
         mat, avg_val = beta_grm_matrix(ws, chunk=chunk, verbose=verbose,
-                                       sample_block=sample_block, device=dev)
+                                       sample_block=sample_block, mesh=mesh,
+                                       device=dev)
     elif method == "Eigenstrat":
-        mat = pca_covariance(ws, chunk=chunk, checkpoint=checkpoint,
-                             verbose=verbose, device=dev)
+        if mesh is not None:
+            from ..parallel.mesh import sharded_pca_covariance
+
+            mat = sharded_pca_covariance(ws, mesh, chunk=chunk)
+        else:
+            mat = pca_covariance(ws, chunk=chunk, checkpoint=checkpoint,
+                                 verbose=verbose, device=dev)
         mat *= (n - 1) / float(np.trace(mat))
     elif method == "Corr" and sample_block is not None:
         # large N: whichever GCTA route applies (strips or tiles), then
@@ -174,12 +197,12 @@ def grm(data, sample_id=None, snp_id=None, autosome_only=True,
         mat = _corr(grm(data, sample_id=sample_id, snp_id=snp_id,
                         autosome_only=autosome_only,
                         remove_monosnp=remove_monosnp, maf=maf,
-                        missing_rate=missing_rate, method="GCTA",
+                        missing_rate=missing_rate, method="GCTA", mesh=mesh,
                         verbose=verbose, chunk=chunk, checkpoint=checkpoint,
                         sample_block=sample_block, tiles=tiles,
                         tile_group=tile_group, device=dev).grm)
     else:
-        mat = _gcta(ws, chunk, checkpoint, verbose, dev)
+        mat = _gcta(ws, chunk, checkpoint, verbose, dev, mesh)
         if method == "Corr":
             mat = _corr(mat)
     res = GRMResult(ws.sample_id, ws.snp_id, method, mat, avg_val)

@@ -46,8 +46,9 @@ def ibs(data, sample_id=None, snp_id=None, autosome_only=True,
     super-tile engine. tile_rank=(rank, world): rank run of the multi-host
     tile partition, which writes this rank's tiles into checkpoint= and
     returns None; a tile_rank=None run over the same checkpoint assembles
-    them. mesh= and tile_devices= name routes that are not ported and
-    raise NotImplementedError (ROADMAP item 12). num_thread is accepted and
+    them. mesh= (``parallel.mesh.DeviceMesh``) shards the counts over a
+    mesh; tile_devices= deals whole super tiles over the given devices.
+    num_thread is accepted and
     ignored. device: None = the CUDA card; "cpu" runs the plain
     versions."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,

@@ -32,9 +32,9 @@ import numpy as np
 import torch
 
 from ..ops.kernels import gram5_rows, gram5_tile, king_screen, king_screen_tile
-from ..ops.pairwise import (_row_tile_setup, auto_chunk, cross_pair_counts,
+from ..ops.pairwise import (_StripShards, auto_chunk, cross_pair_counts,
                             king_homo_counts, pair_counts,
-                            past_staging_budget, refuse_routes)
+                            past_staging_budget)
 from ..utils.device import resolve_device
 from ..utils.packed import maybe_packed
 from ..workspace import init_workspace
@@ -136,8 +136,9 @@ def ibd_king(data, sample_id=None, snp_id=None, autosome_only=True,
     thresholds), and past the slab-staging budget the super-tile engine.
     tile_rank=(rank, world): rank run of the multi-host tile partition
     into checkpoint= (returns None); a tile_rank=None run over the same
-    checkpoint assembles it. mesh= and tile_devices= raise
-    NotImplementedError (ROADMAP item 12). num_thread is accepted and
+    checkpoint assembles it. mesh= (``parallel.mesh.DeviceMesh``) shards
+    the counts over a mesh; tile_devices= deals whole super tiles over
+    the given devices. num_thread is accepted and
     ignored. device: None = the CUDA card; "cpu" runs the plain
     versions."""
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
@@ -189,30 +190,41 @@ def ibd_king(data, sample_id=None, snp_id=None, autosome_only=True,
                             maybe_packed(kinship, use_matrix))
 
 
-def king_screen_rows(chunks, n: int, n_pad: int, fam: np.ndarray,
-                     sample_block: int, kinship_cutoff: float, device,
+def king_screen_rows(shards, n: int, fam: np.ndarray, kinship_cutoff: float,
                      verbose: bool = False):
-    """The strip loop of ``king_ibd_selection``: for each strip of
-    ``sample_block`` sample rows, ``gram5_rows`` over the packed chunks
-    (``chunks()`` gives them anew for each strip: (S, n_pad/4) device
-    tensors, n_pad a multiple of sample_block), then ``king_screen``. Only
-    the columns before the strip's last row are computed: the screen's
-    triangle never reads the others. Yields (row0, hits), hits a (7, h)
-    int64 numpy array of the strip's candidates in row-major order: strip
-    row, column, ss, hv, vh, IBS0, vv."""
+    """The strip loop of ``king_ibd_selection`` over an
+    ``ops.pairwise._StripShards`` (one part on one device, or one per mesh
+    device): for each strip of ``shards.sample_block`` sample rows,
+    ``gram5_rows`` over the packed chunks (each part its rows of the
+    strip), then ``king_screen``. Only the columns before the strip's last
+    row are computed: the screen's triangle never reads the others. The
+    hit lists of the parts concatenate in device order, which keeps them
+    row-major. Yields (row0, hits), hits a (7, h) int64 numpy array of the
+    strip's candidates in row-major order: strip row, column, ss, hv, vh,
+    IBS0, vv."""
+    parts, rows, n_pad = shards.parts, shards.rows, shards.n_pad
     fam_pad = np.full(n_pad, -1, np.int32)
     fam_pad[:n] = fam
-    fam_d = torch.from_numpy(fam_pad).to(device)
-    carry = torch.empty((5, sample_block, n_pad), dtype=torch.int32,
-                        device=device)
-    for r0 in range(0, n, sample_block):
-        nr = min(sample_block, n - r0)
-        carry.zero_()
+    fam_d = {dev: torch.from_numpy(fam_pad).to(dev) for _, dev in parts}
+    carry = [torch.empty((5, rows, n_pad), dtype=torch.int32, device=dev)
+             for _, dev in parts]
+    for r0 in range(0, n, shards.sample_block):
+        nr = min(shards.sample_block, n - r0)
+        for c in carry:
+            c.zero_()
         n_cols = min(n_pad, -(-(r0 + nr) // 64) * 64)
-        for packed in chunks():
-            gram5_rows(packed, carry, r0, n_cols)
-        hits = king_screen(carry, fam_d, r0, nr, float(kinship_cutoff))
-        hits = hits.cpu().numpy().astype(np.int64)
+        for pks in shards.chunks():
+            for k, (off, _dev) in enumerate(parts):
+                if off < nr:
+                    gram5_rows(pks[k], carry[k], r0 + off, n_cols)
+        local = []
+        for k, (off, dev) in enumerate(parts):
+            h = king_screen(carry[k], fam_d[dev], r0 + off,
+                            shards.nrows(nr, off), float(kinship_cutoff))
+            h = h.cpu().numpy().astype(np.int64)
+            h[0] += off  # rows of the strip
+            local.append(h)
+        hits = shards.gather(local, axis=1)
         if verbose:
             print(f"KING screening rows {r0 + nr}/{n}: {hits.shape[1]} "
                   "candidate pairs", flush=True)
@@ -261,38 +273,65 @@ def select_pairs(sample_id, fam: np.ndarray, strips, kinship_cutoff: float):
 
 
 def king_screen_tiles(source, n: int, fam: np.ndarray, kinship_cutoff: float,
-                      rows=None, verbose: bool = False):
+                      rows=None, verbose: bool = False, mesh=None,
+                      devices=None):
     """The tile loop of the super-tile KING screen: over the upper tile
     triangle of ``source`` (serpentine, ``ops.tiles._tile_walk``), the
     five count grams of each tile (``gram5_tile``, one launch over every
     SNP) and its screen (``king_screen_tile``; a diagonal tile screens its
     strict lower triangle). ``rows``: the tile rows to cover (a tile_rank
-    share). Yields (r0, c0, nr, nc, hits) in walk order, hits a (7, h)
-    int64 numpy array of the tile's candidates in row-major tile order:
-    tile row, tile column, ss, hv, vh, IBS0, vv."""
-    from ..ops.tiles import _keyed_tile_stream
+    share). mesh=: each tile's grams split by rows over the mesh
+    (``ops.tiles._TileShards``), copied device to device into the carry
+    of the mesh's first device and screened there.
+    devices=: whole tiles dealt over the devices, each device's screened
+    tile settled when its next tile arrives and the last ones in device
+    order (the JAX package's order of the hit lists). Yields (r0, c0, nr,
+    nc, hits), hits a (7, h) int64 numpy array of the tile's candidates in
+    row-major tile order: tile row, tile column, ss, hv, vh, IBS0, vv."""
+    from ..ops.tiles import (_TileShards, _check_schedule, _count_op, _flat,
+                             _keyed_tile_stream)
 
+    _check_schedule(mesh, devices)
     g = source.group
-    dev = source.device
     fam_pad = np.full(source.n_groups * g, -1, np.int32)
     fam_pad[:n] = fam
-    fam_d = torch.from_numpy(fam_pad).to(dev)
-    carry = torch.empty((5, g, g), dtype=torch.int32, device=dev)
-    for _key, (i, j, r0, c0, nr, nc, payload) in _keyed_tile_stream(
-            source, n, rows=rows):
-        slab_i, slab_j = payload
-        payload = None
-        carry.zero_()
-        gram5_tile(slab_i.view(-1, g // 4), slab_j.view(-1, g // 4), carry)
-        slab_i = slab_j = None
-        hits = king_screen_tile(carry, fam_d[i * g:(i + 1) * g],
-                                fam_d[j * g:(j + 1) * g], r0 - c0, i == j,
-                                float(kinship_cutoff))
+    stream, devs = _keyed_tile_stream(source, n, rows=rows, devices=devices)
+    shards = _TileShards(mesh, g) if mesh is not None else None
+    if shards is not None:
+        devs = [mesh.first]
+    fam_d = {dev: torch.from_numpy(fam_pad).to(dev) for dev in devs}
+    carry = {dev: torch.empty((5, g, g), dtype=torch.int32, device=dev)
+             for dev in devs}
+    pend = {}
+
+    def settle(p):
+        i, j, r0, c0, nr, nc, hits = p
         hits = hits.cpu().numpy().astype(np.int64)
         if verbose:
             print(f"KING screen tile ({i},{j}): {hits.shape[1]} "
                   "candidates", flush=True)
-        yield r0, c0, nr, nc, hits
+        return r0, c0, nr, nc, hits
+
+    for key, (i, j, r0, c0, nr, nc, payload) in stream:
+        if key in pend:
+            yield settle(pend.pop(key))
+        slab_i, slab_j = payload
+        payload = None
+        dev = devs[0] if shards is not None else devs[key]
+        c = carry[dev]
+        if shards is not None:
+            shards.into([c], _flat(slab_i), _flat(slab_j), _count_op)
+        else:
+            c.zero_()
+            gram5_tile(slab_i.view(-1, g // 4), slab_j.view(-1, g // 4), c)
+        slab_i = slab_j = None
+        fd = fam_d[dev]
+        hits = king_screen_tile(c, fd[i * g:(i + 1) * g],
+                                fd[j * g:(j + 1) * g], r0 - c0, i == j,
+                                float(kinship_cutoff))
+        pend[key] = (i, j, r0, c0, nr, nc, hits)
+    for key in sorted(pend):
+        yield settle(pend.pop(key))
 
 
 def select_tile_pairs(sample_id, fam: np.ndarray, tiles,
@@ -319,7 +358,8 @@ def select_tile_pairs(sample_id, fam: np.ndarray, tiles,
 
 
 def _king_screen_tiles(ws, fam, kinship_cutoff, group, chunk, verbose,
-                       source=None, tile_rank=None, device=None):
+                       source=None, tile_rank=None, device=None, mesh=None,
+                       devices=None):
     """The super-tile KING screen (the JAX package's
     models/king.py:_king_screen_tiles): the bounded-traffic route past the
     slab-staging budget, where the strips would re-stream the selection
@@ -327,7 +367,8 @@ def _king_screen_tiles(ws, fam, kinship_cutoff, group, chunk, verbose,
     tile_rank=(rank, world): screen this rank's weight-balanced tile-row
     share and return its PARTIAL table; tiles partition the pairs
     exactly, so concatenating every rank's table gives the full result
-    (no checkpoint needed: the hits are the whole output)."""
+    (no checkpoint needed: the hits are the whole output). mesh= /
+    devices=: see ``king_screen_tiles``."""
     from ..ops.tiles import StoreSlabSource, auto_tile_group, rank_rows
 
     n = ws.n_samp
@@ -339,13 +380,15 @@ def _king_screen_tiles(ws, fam, kinship_cutoff, group, chunk, verbose,
             # if the grids agree)
             group = auto_tile_group(
                 ws.n_snp, n_samp=n,
-                bytes_per_cell=40 if tile_rank is not None else 20)
+                bytes_per_cell=40 if (tile_rank is not None
+                                      or devices is not None) else 20)
         if chunk is None:
             chunk = auto_chunk(ws.n_snp, dev)
         source = StoreSlabSource(ws, group, chunk, device=dev)
     rows = None if tile_rank is None else rank_rows(source.n_groups,
                                                     *tile_rank)
-    tiles = king_screen_tiles(source, n, fam, kinship_cutoff, rows, verbose)
+    tiles = king_screen_tiles(source, n, fam, kinship_cutoff, rows, verbose,
+                              mesh=mesh, devices=devices)
     return select_tile_pairs(ws.sample_id, fam, tiles, kinship_cutoff)
 
 
@@ -375,8 +418,10 @@ def king_ibd_selection(data, kinship_cutoff, sample_id=None, snp_id=None,
     tile rows, row-major within a tile. tile_rank=(rank, world) screens
     one rank's weight-balanced tile-row share and returns its PARTIAL
     table (concatenating every rank's is the full result); it implies the
-    tiles and raises with tiles=False. mesh= and tile_devices= raise
-    NotImplementedError (ROADMAP item 12). device: None = the CUDA card;
+    tiles and raises with tiles=False. mesh= (``parallel.mesh.DeviceMesh``)
+    splits each strip's rows, or each tile's, over the mesh's devices;
+    tile_devices= deals whole super tiles over the given devices (implies
+    tiles=True). device: None = the CUDA card;
     "cpu" runs the plain versions."""
     if not np.isfinite(kinship_cutoff):
         raise ValueError("kinship_cutoff must be finite")
@@ -390,17 +435,15 @@ def king_ibd_selection(data, kinship_cutoff, sample_id=None, snp_id=None,
             raise ValueError("tile_rank= runs on the super-tile route; "
                              "drop tiles=False (or the tile_rank=)")
         tile_rank = parse_tile_rank(tile_rank)
-    refuse_routes("king_ibd_selection", mesh, tile_devices)
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
                            remove_monosnp, maf, missing_rate, verbose=verbose)
     fam = _resolve_family(family_id, sample_id, ws)
     dev = resolve_device(device)
-    if tiles is not False and (tiles or force_tiles
-                               or past_staging_budget(ws)):
+    if tiles is not False and (tiles or tile_devices is not None
+                               or force_tiles or past_staging_budget(ws)):
         return _king_screen_tiles(ws, fam, kinship_cutoff, tile_group, chunk,
-                                  verbose, tile_rank=tile_rank, device=dev)
-    sample_block, n_pad, chunk, chunks = _row_tile_setup(
-        ws, sample_block, chunk, 128, 20, dev)
-    strips = king_screen_rows(chunks, ws.n_samp, n_pad, fam, sample_block,
-                              kinship_cutoff, dev, verbose)
+                                  verbose, tile_rank=tile_rank, device=dev,
+                                  mesh=mesh, devices=tile_devices)
+    sh = _StripShards(ws, sample_block, chunk, 20, dev, mesh)
+    strips = king_screen_rows(sh, ws.n_samp, fam, kinship_cutoff, verbose)
     return select_pairs(ws.sample_id, fam, strips, kinship_cutoff)

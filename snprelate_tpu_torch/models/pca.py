@@ -16,7 +16,7 @@ from typing import Optional
 
 import numpy as np
 
-from ..ops.pairwise import pca_covariance, refuse_routes
+from ..ops.pairwise import pca_covariance
 from ..workspace import init_workspace
 
 
@@ -48,11 +48,11 @@ def pca(data, sample_id=None, snp_id=None, autosome_only=True,
     """snpgdsPCA (R/PCA.R:22-91), exact or randomized algorithm.
     eigen_method "DSPEVX" (top eigen_cnt pairs) or "DSPEV" (all pairs) both
     map to the same descending eigh. aux_dim (default 2 eigen_cnt),
-    iter_num and seed drive the randomized algorithm. mesh= (the sharded
-    route) is not ported and raises NotImplementedError. num_thread is
+    iter_num and seed drive the randomized algorithm. mesh=
+    (``parallel.mesh.DeviceMesh``): the covariance (exact, not bayesian) or
+    the randomized passes run sharded over the mesh. num_thread is
     accepted and ignored. device: None = the CUDA card; "cpu" runs the
     plain versions."""
-    refuse_routes("pca", mesh)
     if eigen_method not in ("DSPEVX", "DSPEV"):
         raise ValueError("Invalid 'eigen.method'.")
     ws, _ = init_workspace(data, sample_id, snp_id, autosome_only,
@@ -68,12 +68,18 @@ def pca(data, sample_id=None, snp_id=None, autosome_only=True,
         return randomized_pca(ws, eigen_cnt=eigen_cnt,
                               aux_dim=aux_dim or 2 * eigen_cnt,
                               iter_num=iter_num, seed=seed, chunk=chunk,
-                              device=device)
+                              mesh=mesh, device=device)
     if algorithm != "exact":
         raise ValueError("Invalid 'algorithm'.")
 
-    cov = pca_covariance(ws, bayesian=bayesian, chunk=chunk, verbose=verbose,
-                         checkpoint=checkpoint, device=device)
+    if mesh is not None and not bayesian:
+        from ..parallel.mesh import sharded_pca_covariance
+
+        cov = sharded_pca_covariance(ws, mesh, chunk=chunk)
+    else:
+        cov = pca_covariance(ws, bayesian=bayesian, chunk=chunk,
+                             verbose=verbose, checkpoint=checkpoint,
+                             device=device)
     trace_xtx = float(np.trace(cov))
     cov *= (n - 1) / trace_xtx
     genmat = cov.copy() if need_genmat else None

@@ -52,7 +52,8 @@ def pca_corr(pcaobj, data, snp_id=None, eig_which=None, verbose=False,
     """snpgdsPCACorr (R/PCA.R:100): the correlation of every selected SNP
     (no frequency or chromosome filter) with the eigenvectors. outgds= (the
     GDS artifact) needs the GDS writer, which is not ported, and raises;
-    mesh= raises (ROADMAP item 12). num_thread is accepted and ignored.
+    mesh= (``parallel.mesh.DeviceMesh``) runs the chunks over a mesh.
+    num_thread is accepted and ignored.
     device: None = the CUDA card; "cpu" runs the plain versions."""
     if outgds is not None:
         raise NotImplementedError(

@@ -9,7 +9,10 @@ FastPCA/Galinsky randomized subspace iteration) on the port's kernels:
 Per chunk, ``snp_stats`` (K2a, randomized kind) gives avg, scale and the
 trace term, ``rand_h`` (K3a) computes H = Y G and ``rand_yt`` (K3b) adds
 Y' H into G_next and Y' U_H into T' (T kept transposed, (n_pad, hsize)).
-The normalized block Y never exists in device memory.
+The normalized block Y never exists in device memory. With ``mesh=``
+(``parallel/mesh.py``) the passes run sharded over the mesh's data axis:
+per-entry partials of G and T' summed once per pass, one device being a
+one-entry mesh of the same code (``_randomized_pca_cached``).
 
 This is the PCA route for large cohorts: exact PCA keeps an n x n float64
 covariance on the device, which at 100,000 samples no longer fits.
@@ -92,64 +95,6 @@ def _result(ws, eigenval, eigenvect, vp, trace2):
                      trace2, False, None)
 
 
-def _randomized_pca_cached(ws, eigen_cnt, aux_dim, iter_num, seed, chunk,
-                           n_pad, dev, p_all=None):
-    """Device-resident randomized PCA: packed chunks staged on the device
-    once (or given as ``p_all``), the per-SNP statistics computed once,
-    every pass a loop of kernel launches over the staged chunks, the span
-    basis (QR) and the projection on the device; only the (hsize x hsize)
-    eigensolve and the final eigenvectors on the host."""
-    n, m = ws.n_samp, ws.n_snp
-    nbytes = n_pad // 4
-    n_chunks = -(-m // chunk)
-    if p_all is None:
-        host = np.empty((n_chunks, chunk, nbytes), np.uint8)
-        for i, (_s, packed) in enumerate(ws.packed_chunks(chunk,
-                                                          pad_bytes=nbytes)):
-            host[i] = packed
-        p_all = torch.from_numpy(host).to(dev)
-        del host
-    elif (p_all.dtype != torch.uint8 or p_all.device != dev
-          or tuple(p_all.shape) != (n_chunks, chunk, nbytes)
-          or not p_all.is_contiguous()):
-        raise ValueError(
-            f"p_all: expected a contiguous uint8 tensor of shape "
-            f"{(n_chunks, chunk, nbytes)} on {dev}, got {p_all.dtype} "
-            f"{tuple(p_all.shape)} on {p_all.device}")
-
-    # padded SNP rows and samples are missing-coded, so y == 0 there: they
-    # change neither the span nor T (pca_randomized.py:258-260)
-    stats = [snp_stats(p_all[i], "randomized") for i in range(n_chunks)]
-    trace_xtx = float(torch.stack([st[5].sum() for st in stats]).sum())
-    g_mat = torch.from_numpy(_g0(seed, n, n_pad, aux_dim)).to(dev)
-
-    h_parts = []
-    for it in range(iter_num + 1):
-        h = torch.zeros((n_chunks * chunk, aux_dim), dtype=torch.float64,
-                        device=dev)
-        for i, st in enumerate(stats):
-            rand_h(p_all[i], st[2], st[3], g_mat,
-                   h[i * chunk:(i + 1) * chunk])
-        h_parts.append(h)
-        if it < iter_num:
-            g_next = torch.zeros_like(g_mat)
-            for i, st in enumerate(stats):
-                rand_yt(p_all[i], st[2], st[3],
-                        h[i * chunk:(i + 1) * chunk], g_next)
-            g_mat = g_next / m  # m, not the padded count (:264)
-
-    # any orthonormal basis of span(H) gives the same projector, hence the
-    # same factorization: QR in place of the streamed route's SVD (:214)
-    q = torch.linalg.qr(torch.cat(h_parts, dim=1))[0].contiguous()
-    del h_parts
-    hsize = q.shape[1]
-    t_tr = torch.zeros((n_pad, hsize), dtype=torch.float64, device=dev)
-    for i, st in enumerate(stats):
-        rand_yt(p_all[i], st[2], st[3], q[i * chunk:(i + 1) * chunk], t_tr)
-
-    return _result(ws, *_eigen_from_t(t_tr, eigen_cnt, n, trace_xtx))
-
-
 def _randomized_pca_streamed(ws, eigen_cnt, aux_dim, iter_num, seed, chunk,
                              n_pad, dev):
     """Host-streamed randomized PCA (pca_randomized.py:505-558): chunks
@@ -205,18 +150,123 @@ def _randomized_pca_streamed(ws, eigen_cnt, aux_dim, iter_num, seed, chunk,
     return _result(ws, (n - 1) * vp, eigenvect, vp, trace2)
 
 
-def randomized_pca(ws, eigen_cnt=16, aux_dim=None, iter_num=10, seed=None,
-                   chunk=None, p_all=None, device=None):
-    """Randomized PCA over a Workspace selection, on one device.
+def _randomized_pca_cached(ws, eigen_cnt, aux_dim, iter_num, seed, chunk,
+                           n_pad, mesh, p_all=None):
+    """Device-resident randomized PCA over a mesh's data axis
+    (pca_randomized.py:147; one device is a one-entry mesh): the chunk
+    count padded to a multiple of d (all-missing chunks), data entry k
+    holding the contiguous chunk blocks [k C/d, (k + 1) C/d) on its first
+    device, staged once, their per-SNP statistics computed once. Per pass
+    each entry computes its rows of H = Y G (K3a) and its partial
+    G' += Y'H (K3b); the partials and the trace are summed over the
+    entries (``DeviceMesh.reduce_sum``: a copy for one entry), H is
+    gathered in chunk order for the QR on the device, and T' sums the
+    same way; only the (hsize x hsize) eigensolve and the final
+    eigenvectors run on the host. ``p_all``: the packed chunks already on
+    a device; each entry's blocks are moved from it (no copy on its own
+    device)."""
+    n, m = ws.n_samp, ws.n_snp
+    nbytes = n_pad // 4
+    d = mesh.shape["data"]
+    n_chunks = -(-m // chunk)
+    n_chunks = -(-n_chunks // d) * d  # a multiple of d
+    per = n_chunks // d
+    d_local = mesh.devices.shape[0]
+    lo = mesh.rank * d_local * per  # this process's first chunk
+    devs = [mesh.devices[k, 0] for k in range(d_local)]
+    if p_all is None:
+        host = np.full((d_local * per, chunk, nbytes), 0xFF, np.uint8)
+        for i, (_s, packed) in enumerate(ws.packed_chunks(chunk,
+                                                          pad_bytes=nbytes)):
+            if lo <= i < lo + d_local * per:
+                host[i - lo] = packed
+        p_dev = [torch.from_numpy(host[k * per:(k + 1) * per]).to(dev)
+                 for k, dev in enumerate(devs)]
+        del host
+    else:
+        p_dev = []
+        for k, dev in enumerate(devs):
+            a = min(lo + k * per, p_all.shape[0])
+            b = min(lo + (k + 1) * per, p_all.shape[0])
+            blk = p_all[a:b].to(dev)
+            if b - a < per:  # the padding chunks: all missing
+                blk = torch.cat([blk, torch.full(
+                    (per - (b - a), chunk, nbytes), 0xFF, dtype=torch.uint8,
+                    device=dev)])
+            p_dev.append(blk)
+    # padded SNP rows and samples are missing-coded, so y == 0 there: they
+    # change neither the span nor T (pca_randomized.py:258-260)
+    stats = [[snp_stats(p[i], "randomized") for i in range(per)]
+             for p in p_dev]
+    trace_xtx = float(mesh.reduce_sum(
+        [torch.stack([st[5].sum() for st in sts]).sum() for sts in stats]))
+    g0 = torch.from_numpy(_g0(seed, n, n_pad, aux_dim))
+    g_dev = [g0.to(dev) for dev in devs]
 
-    The cached route stages the packed chunks on the device once (or takes
-    ``p_all``, a contiguous uint8 (n_chunks, chunk, n_pad/4) tensor on the
-    device) when they and the factors fit ``_cache_budget``; otherwise the
-    streamed route re-streams the chunks from the host on every pass.
+    def gather_rows(parts):
+        """Entries' (per * chunk, c) rows -> (n_chunks * chunk, c) on the
+        mesh's first device, in chunk order."""
+        local = [t.to(mesh.first) for t in parts]
+        if mesh.group is not None:
+            local = [torch.from_numpy(a).to(mesh.first) for a in
+                     mesh.gather_host([t.cpu().numpy() for t in local])]
+        return torch.cat(local)
+
+    h_parts = []
+    for it in range(iter_num + 1):
+        h_loc = []
+        for k, dev in enumerate(devs):
+            h = torch.zeros((per * chunk, aux_dim), dtype=torch.float64,
+                            device=dev)
+            for i, st in enumerate(stats[k]):
+                rand_h(p_dev[k][i], st[2], st[3], g_dev[k],
+                       h[i * chunk:(i + 1) * chunk])
+            h_loc.append(h)
+        h_parts.append(gather_rows(h_loc))
+        if it < iter_num:
+            g_parts = []
+            for k, dev in enumerate(devs):
+                g_next = torch.zeros_like(g_dev[k])
+                for i, st in enumerate(stats[k]):
+                    rand_yt(p_dev[k][i], st[2], st[3],
+                            h_loc[k][i * chunk:(i + 1) * chunk], g_next)
+                g_parts.append(g_next)
+            g_mat = mesh.reduce_sum(g_parts) / m  # m, not the padded count
+            g_dev = [g_mat.to(dev) for dev in devs]
+        del h_loc
+
+    # any orthonormal basis of span(H) gives the same projector, hence the
+    # same factorization: QR in place of the streamed route's SVD (:214)
+    q = torch.linalg.qr(torch.cat(h_parts, dim=1))[0].contiguous()
+    del h_parts
+    hsize = q.shape[1]
+    t_parts = []
+    for k, dev in enumerate(devs):
+        qk = q[(lo + k * per) * chunk:(lo + (k + 1) * per) * chunk].to(dev)
+        t_tr = torch.zeros((n_pad, hsize), dtype=torch.float64, device=dev)
+        for i, st in enumerate(stats[k]):
+            rand_yt(p_dev[k][i], st[2], st[3],
+                    qk[i * chunk:(i + 1) * chunk], t_tr)
+        t_parts.append(t_tr)
+    t_tr = mesh.reduce_sum(t_parts)
+    return _result(ws, *_eigen_from_t(t_tr, eigen_cnt, n, trace_xtx))
+
+
+def randomized_pca(ws, eigen_cnt=16, aux_dim=None, iter_num=10, seed=None,
+                   chunk=None, p_all=None, mesh=None, device=None):
+    """Randomized PCA over a Workspace selection, on one device or, with
+    mesh= (``parallel.mesh.DeviceMesh``), sharded over its data axis.
+
+    The cached route (``_randomized_pca_cached``) stages the packed chunks
+    on the device once (or takes ``p_all``, a contiguous uint8 (n_chunks,
+    chunk, n_pad/4) tensor on the device, the mesh's first device with
+    mesh=); it is taken with mesh=, with ``p_all``, or when the chunks and
+    the factors fit ``_cache_budget``. Otherwise the streamed route
+    re-streams the chunks from the host on every pass.
     Returns a PCAResult with the reference's eigval = (n-1) 2 sigma^2 /
     TraceXTX semantics (R/PCA.R:80-88). device: None = the CUDA card;
     "cpu" runs the plain versions."""
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.first
     n, m = ws.n_samp, ws.n_snp
     if chunk is None:
         chunk = 4096 if p_all is None else p_all.shape[1]
@@ -234,10 +284,22 @@ def randomized_pca(ws, eigen_cnt=16, aux_dim=None, iter_num=10, seed=None,
             "algorithm='exact' (the subspace cannot be wider than the "
             "SNP dimension)")
 
-    if p_all is not None or _cached_bytes(
+    want = (n_chunks, chunk, n_pad // 4)
+    if p_all is not None and (p_all.dtype != torch.uint8
+                              or p_all.device != dev
+                              or tuple(p_all.shape) != want
+                              or not p_all.is_contiguous()):
+        raise ValueError(
+            f"p_all: expected a contiguous uint8 tensor of shape {want} on "
+            f"{dev}, got {p_all.dtype} {tuple(p_all.shape)} on "
+            f"{p_all.device}")
+    if mesh is not None or p_all is not None or _cached_bytes(
             n_chunks, chunk, n_pad, aux_dim, hsize) <= _cache_budget(dev):
-        return _randomized_pca_cached(ws, eigen_cnt, aux_dim, iter_num,
-                                      seed, chunk, n_pad, dev, p_all=p_all)
+        from ..parallel.mesh import make_mesh
+
+        return _randomized_pca_cached(
+            ws, eigen_cnt, aux_dim, iter_num, seed, chunk, n_pad,
+            mesh if mesh is not None else make_mesh(1, 1, [dev]), p_all)
     return _randomized_pca_streamed(ws, eigen_cnt, aux_dim, iter_num, seed,
                                     chunk, n_pad, dev)
 

@@ -20,6 +20,13 @@ def decode2bit(packed: torch.Tensor) -> torch.Tensor:
     return parts.reshape(s, 4 * b).to(torch.int8)
 
 
+def genotype_planes(geno: torch.Tensor) -> torch.Tensor:
+    """(S, N) int8 genotypes -> (3, S, N) int8 one-hot planes
+    I_a[s, i] = [g_si == a], a = 0, 1, 2; missing (3) has all-zero planes,
+    so every masked pairwise count is a plane cross-product."""
+    return torch.stack([geno == 0, geno == 1, geno == 2]).to(torch.int8)
+
+
 def genotype_basis(geno: torch.Tensor) -> torch.Tensor:
     """(S, N) int8 genotypes -> (3, S, N) int8 reduced count basis
     [V, H, D] with V = [g != 3] (validity), H = [g == 1] (het) and

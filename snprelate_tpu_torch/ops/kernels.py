@@ -55,6 +55,9 @@ kernels its path went through.
   ll_tile: the log-likelihood of given (k0, k1, k2) per pair
 - ``perm_cross`` (K15) replaces models/cluster.py's _perm_cross_dev: the
   between-group sums of every permutation split of cut_tree
+- ``gram6`` (K16, ``csrc/gram4.cu``) replaces ops/pairwise.py's
+  _gram6_step (with genotype_planes and _sym_grams): the six one-hot plane
+  cross-grams of a chunk
 """
 
 from __future__ import annotations
@@ -66,7 +69,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .decode import decode2bit, genotype_basis
+from .decode import decode2bit, genotype_basis, genotype_planes
 from .ibd import (candidates, ibd_em_plain, ibd_loglik_plain,
                   ibd_simplex_plain)
 
@@ -76,6 +79,7 @@ _F, _L, _D = ctypes.c_float, ctypes.c_longlong, ctypes.c_double
 # go as a 32-bit int and cut a stream pointer
 _ARGTYPES = {
     "gram4": (_P, _I, _I, _P, _P),
+    "gram6": (_P, _I, _I, _P, _P),
     "gram5_rows": (_P, _I, _I, _I, _I, _I, _P, _P),
     "norm_gram_rows": (_P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P),
     "king_screen_count": (_P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _P, _P),
@@ -114,7 +118,8 @@ _ENTRY_SOURCE = {"gram5_rows": "gram4", "norm_gram_rows": "norm_gram",
                  "king_screen_tile": "king_screen",
                  "king_screen_tile_count": "king_screen",
                  "king_screen_tile_write": "king_screen",
-                 "gram5_cross": "gram4", "ld_measure": "ld",
+                 "gram5_cross": "gram4", "gram6": "gram4",
+                 "ld_measure": "ld",
                  "ld_joint": "ld", "ibd_em": "ibd_mle",
                  "ibd_simplex": "ibd_mle", "ibd_loglik": "ibd_mle"}
 
@@ -194,6 +199,34 @@ def gram4(packed: torch.Tensor, carry: torch.Tensor) -> None:
 
 
 gram4.launches = 0
+
+
+# ---------------------------------------------------------------- K16 gram6
+
+# the plane pairs (a, b), a <= b, of the six plane grams, in carry order
+SYM_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+
+def gram6_plain(packed: torch.Tensor, carry: torch.Tensor) -> None:
+    """Plain version of :func:`gram6`: decode, planes, six grams."""
+    planes = genotype_planes(decode2bit(packed))
+    for k, (a, b) in enumerate(SYM_PAIRS):
+        carry[k] += _gram(planes[a], planes[b]).to(torch.int32)
+
+
+def gram6(packed: torch.Tensor, carry: torch.Tensor) -> None:
+    """carry (6, N, N) int32 += I_a'I_b for (a, b) in ``SYM_PAIRS``, I_a
+    = [g == a] the one-hot planes of one packed (S, N/4) chunk (missing
+    and 0xFF padding: all-zero planes), updated in place."""
+    S, B = _check_packed(packed)
+    _check(carry, "carry", torch.int32, (6, 4 * B, 4 * B), packed.device)
+    if not packed.is_cuda:
+        return gram6_plain(packed, carry)
+    _launch("gram6", packed.device, packed.data_ptr(), S, B, carry.data_ptr())
+    gram6.launches += 1
+
+
+gram6.launches = 0
 
 
 # ----------------------------------------------------------- K1r gram5_rows
@@ -1390,6 +1423,7 @@ KERNELS = {"gram4": gram4, "snp_stats": snp_stats, "norm_gram": norm_gram,
            "gram5_cross": gram5_cross, "ld_joint": ld_joint,
            "ld_measure": ld_measure, "pop_counts": pop_counts,
            "ibd_em": ibd_em, "ibd_simplex": ibd_simplex,
-           "ibd_loglik": ibd_loglik, "perm_cross": perm_cross}
+           "ibd_loglik": ibd_loglik, "perm_cross": perm_cross,
+           "gram6": gram6}
 # the source (csrc/<source>.cu) of each kernel
 SOURCES = {name: _ENTRY_SOURCE.get(name, name) for name in KERNELS}

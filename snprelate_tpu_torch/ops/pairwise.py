@@ -37,12 +37,17 @@ slab-staging budget (``SLAB_STAGING_BUDGET``), with ``tile_rank=`` or over
 an existing tile-grid checkpoint, the count, KING-homo and EIGMIX engines
 take the super-tile route of ``ops/tiles.py`` instead (``gram5_tile``,
 K1t, and ``norm_gram_tile``, K2b's tile mode), as the JAX package does.
-The mesh routes (``mesh=``) and whole tiles on several cards
-(``tile_devices=``) are not ported: they raise ``NotImplementedError``
-(``refuse_routes``). Checkpoints use the JAX package's layouts and meta
-tuples (npz per chunk on the full square, one .npy per strip on the rows,
-one .npz per tile on the tiles), so either package resumes the other's
-run.
+With ``mesh=`` (``parallel/mesh.py``) the full square runs sharded
+(``sharded_pair_counts``: SNP chunks over the data axis, one sum at the
+end) and the row strips split their rows over every mesh device;
+``tile_devices=`` deals whole super tiles over several devices.
+
+5. ``plane_grams``: the full (3, 3, N, N) joint genotype counts from the
+   six one-hot plane grams (``gram6``, K16).
+
+Checkpoints use the JAX package's layouts and meta tuples (npz per chunk
+on the full square, one .npy per strip on the rows, one .npz per tile on
+the tiles), so either package resumes the other's run.
 """
 
 from __future__ import annotations
@@ -55,9 +60,10 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from .kernels import (chunk_snp_stats, gram4, gram5_cross, gram5_rows,
-                      het_count, norm_gram, norm_gram_rows, normalize,
-                      pca_scale, snp_stats)
+from .decode import decode2bit, genotype_planes
+from .kernels import (SYM_PAIRS, chunk_snp_stats, gram4, gram5_cross,
+                      gram5_rows, gram6, het_count, norm_gram, norm_gram_rows,
+                      normalize, pca_scale, snp_stats)
 
 # int32 ceiling: every pairwise counter grows by at most 1 per SNP, so an
 # int32 carry is exact up to 2^31 - 1 accumulated SNPs.
@@ -74,21 +80,6 @@ def past_staging_budget(ws) -> bool:
     where the JAX package's automatic switch leaves the row strips for its
     super-tile route (pairwise.py:478, models/grm.py:120, king.py:394)."""
     return ws.n_snp * (-(-ws.n_samp // 4)) > SLAB_STAGING_BUDGET
-
-
-def refuse_routes(what: str, mesh=None, tile_devices=None) -> None:
-    """Raise NotImplementedError for a route argument that selects a
-    route the port does not have: mesh= (the sharded routes) and
-    tile_devices= (whole super tiles scheduled over several cards), both
-    ROADMAP section 1 item 12."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}: mesh= (the sharded routes) is not ported yet "
-            "(ROADMAP section 1 item 12)")
-    if tile_devices is not None:
-        raise NotImplementedError(
-            f"{what}: tile_devices= (whole tiles over several cards) is not "
-            "ported yet (ROADMAP section 1 item 12)")
 
 
 def _count_ceiling() -> int:
@@ -176,6 +167,40 @@ def make_pca_block(geno: torch.Tensor, bayesian: bool = False):
     gsum, gnum, valid = chunk_snp_stats(geno)
     avg, scale = pca_scale(gsum, gnum, _pca_kind(bayesian))
     return normalize(geno, valid, avg, scale), (gsum, gnum, valid)
+
+
+def _mirror6(g6: np.ndarray) -> np.ndarray:
+    """(6, N, N) plane grams in ``SYM_PAIRS`` order -> the full (3, 3, N, N)
+    joint counts: N_ba(i, j) = N_ab(j, i)."""
+    g6 = np.asarray(g6)
+    n = g6.shape[1]
+    c = np.empty((3, 3, n, n), g6.dtype)
+    for k, (a, b) in enumerate(SYM_PAIRS):
+        c[a, b] = g6[k]
+        if a != b:
+            c[b, a] = g6[k].T
+    return c
+
+
+def _flat_planes(packed: torch.Tensor) -> torch.Tensor:
+    """A packed chunk -> its (3N, S) int8 plane matrix (plane-major rows)."""
+    planes = genotype_planes(decode2bit(packed))  # (3, S, N)
+    p3, s, n = planes.shape
+    return planes.transpose(1, 2).reshape(p3 * n, s)
+
+
+def plane_grams(chunks, n_samp_padded: int, device=None) -> np.ndarray:
+    """The (3, 3, N, N) int64 genotype-plane joint counts over packed
+    (S, N/4) chunks, N = n_samp_padded = 4 x packed bytes (padding samples
+    are missing: zero planes): the six plane grams per chunk (``gram6``,
+    K16) into an int32 carry, mirrored on the host. The full 9-count
+    table, where the estimators need only ``PairCounts``' four grams."""
+    dev = resolve_device(device)
+    carry = torch.zeros((6, n_samp_padded, n_samp_padded), dtype=torch.int32,
+                        device=dev)
+    for packed in chunks:
+        gram6(torch.from_numpy(np.ascontiguousarray(packed)).to(dev), carry)
+    return _mirror6(_host(carry)).astype(np.int64)
 
 
 class PairCounts:
@@ -328,16 +353,21 @@ def pair_counts(ws, chunk=None, pad_to: int = 128, checkpoint=None,
     budget from super tiles (``ops.tiles.pair_counts_tiled``).
     tile_rank=(rank, world) computes only this rank's tile rows into
     checkpoint= and returns None; a checkpoint holding a tile grid (meta
-    tag 75) is assembled or resumed on the tiles."""
-    refuse_routes("pair_counts", mesh, tile_devices)
+    tag 75) is assembled or resumed on the tiles. mesh=
+    (``parallel.mesh.DeviceMesh``): without sample_block the sharded full
+    square (``sharded_pair_counts``), else the strips split over every
+    mesh device. tile_devices= deals whole super tiles round-robin over
+    the given devices (not together with mesh=)."""
     dev = resolve_device(device)
-    if tile_rank is not None:
+    if tile_devices is not None or tile_rank is not None:
         from .tiles import pair_counts_tiled
 
-        # the grid resolves inside (rank-aware budget, or an existing
-        # checkpoint's grid, so an assembly run never wipes rank tiles)
+        # the grid resolves inside (rank- and devices-aware budget, or an
+        # existing checkpoint's grid, so an assembly run never wipes rank
+        # tiles)
         return pair_counts_tiled(ws, chunk=chunk, checkpoint=checkpoint,
-                                 verbose=verbose, tile_rank=tile_rank,
+                                 verbose=verbose, mesh=mesh,
+                                 devices=tile_devices, tile_rank=tile_rank,
                                  device=dev)
     if checkpoint:
         from .tiles import pair_counts_tiled, probe_grid_meta
@@ -345,20 +375,29 @@ def pair_counts(ws, chunk=None, pad_to: int = 128, checkpoint=None,
         if probe_grid_meta(checkpoint, 75, ws.n_snp,
                            ws.n_samp) is not None:
             return pair_counts_tiled(ws, chunk=chunk, checkpoint=checkpoint,
-                                     verbose=verbose, device=dev)
+                                     verbose=verbose, mesh=mesh, device=dev)
     n_pad = -(-ws.n_samp // pad_to) * pad_to
     if sample_block is None and 16.0 * n_pad * n_pad > 6e9:
         sample_block = 4096
+    if mesh is not None and not sample_block:
+        if checkpoint:
+            # the sharded full square has no resume protocol: the row
+            # strips (over the mesh) honor the checkpoint
+            sample_block = 4096
+        else:
+            from ..parallel.mesh import sharded_pair_counts
+
+            return sharded_pair_counts(ws, mesh, chunk=chunk)
     if sample_block and past_staging_budget(ws):
         from .tiles import pair_counts_tiled
 
         return pair_counts_tiled(ws, chunk=chunk, checkpoint=checkpoint,
-                                 verbose=verbose, device=dev)
-    if chunk is None:
-        chunk = auto_chunk(ws.n_snp, dev)
+                                 verbose=verbose, mesh=mesh, device=dev)
     if sample_block:
         n = ws.n_samp
-        sample_block = effective_sample_block(ws, sample_block, pad_to, 20)
+        ndev = _mesh_row_tools(mesh, dev)[0]
+        sample_block = effective_sample_block(ws, sample_block,
+                                              pad_to * ndev, 20)
         B = np.empty((5, n, n), np.int64)
         tck = TileCheckpointer(checkpoint, meta=(62, ws.n_snp, n,
                                                  int(sample_block)),
@@ -369,10 +408,13 @@ def pair_counts(ws, chunk=None, pad_to: int = 128, checkpoint=None,
         for r0, nr, strip in basis_gram_rows(ws, sample_block=sample_block,
                                              chunk=chunk, pad_to=pad_to,
                                              start_row=start_row,
-                                             verbose=verbose, device=dev):
+                                             verbose=verbose, mesh=mesh,
+                                             device=dev):
             B[:, r0:r0 + nr, :] = strip
             tck.save_tile(r0, strip)
         return PairCounts(*B)
+    if chunk is None:
+        chunk = auto_chunk(ws.n_snp, dev)
     ck = Checkpointer(checkpoint, checkpoint_every,
                       meta=(62, ws.n_snp, ws.n_samp, chunk))
     step, saved = ck.load()
@@ -618,17 +660,84 @@ def resolve_row_chunk(ws, sample_block: int, chunk, device) -> int:
     return auto_chunk(ws.n_snp, device)
 
 
-def _row_tile_setup(ws, sample_block, chunk, pad_to: int,
-                    bytes_per_cell: int, device):
-    """Shared preamble of the row-strip engines: the effective sample
-    block, the sample axis padded to a whole number of blocks, the chunk,
-    and the chunk source."""
-    sample_block = effective_sample_block(ws, sample_block, pad_to,
-                                          bytes_per_cell)
-    n_pad = -(-ws.n_samp // sample_block) * sample_block
-    chunk = resolve_row_chunk(ws, sample_block, chunk, device)
-    return (sample_block, n_pad, chunk,
-            _stage_or_stream(ws, chunk, n_pad, device))
+def _mesh_row_tools(mesh, device):
+    """(device count, [(global index, device)] of this process) of the
+    row-strip engines: one part per device of the mesh (both axes), or
+    the single ``device`` without one."""
+    if mesh is None:
+        return 1, [(0, device)]
+    return mesh.size, mesh.local_entries()
+
+
+class _StripShards:
+    """The row-strip engines over a mesh: the sample block is padded to
+    128 x the mesh's device count (``effective_sample_block``, as the JAX
+    package pads it, so strip checkpoints hand over between the packages
+    under the same mesh) and every strip splits by sample rows, global
+    device g taking the rows [g R, (g + 1) R) of the strip, R = block /
+    devices, on the row-range kernels. Each distinct device stages the
+    chunks once (``_stage_or_stream``); a repeated device shares them.
+    ``staged``: a callable giving the packed chunks already padded to
+    ``n_pad`` (a cohort packed on a device), moved to each part's device
+    (no copy on its own). Without a mesh, one part holds the whole
+    strip."""
+
+    def __init__(self, ws, sample_block, chunk, bytes_per_cell, device,
+                 mesh=None, pad_to: int = 128, staged=None):
+        ndev, parts = _mesh_row_tools(mesh, device)
+        self.mesh = mesh
+        self.sample_block = effective_sample_block(ws, sample_block,
+                                                   pad_to * ndev,
+                                                   bytes_per_cell)
+        self.n_pad = -(-ws.n_samp // self.sample_block) * self.sample_block
+        self.chunk = resolve_row_chunk(ws, self.sample_block, chunk,
+                                       parts[0][1])
+        self.rows = self.sample_block // ndev
+        self.parts = [(g * self.rows, dev) for g, dev in parts]
+        self._sources = {}
+        for _, dev in self.parts:
+            if dev in self._sources:
+                continue
+            if staged is not None:
+                self._sources[dev] = (
+                    lambda dev=dev: [c.to(dev) for c in staged()])
+            else:
+                self._sources[dev] = _stage_or_stream(ws, self.chunk,
+                                                      self.n_pad, dev)
+
+    def chunks(self):
+        """The chunk stream, each item the chunk on every part's device,
+        in part order."""
+        return zip(*(self._sources[dev]() for _, dev in self.parts))
+
+    def carries(self, planes, dtype):
+        """One zeroed strip carry per part, (planes, R, n_pad) or, with
+        planes 0, (R, n_pad)."""
+        shape = ((planes,) if planes else ()) + (self.rows, self.n_pad)
+        return [torch.zeros(shape, dtype=dtype, device=dev)
+                for _, dev in self.parts]
+
+    def nrows(self, nr: int, off: int) -> int:
+        """The rows of a part at strip offset ``off`` inside a strip of nr
+        real rows."""
+        return max(0, min(self.rows, nr - off))
+
+    def gather(self, arrays, axis: int = -2) -> np.ndarray:
+        """This process's part arrays, every process's in global order
+        (``DeviceMesh.gather_host``), concatenated along the rows."""
+        if self.mesh is not None:
+            arrays = self.mesh.gather_host(arrays)
+        return np.concatenate(arrays, axis=axis)
+
+
+def _strip_rows(shards, carries, nr: int, n: int, dtype=None):
+    """Each part's real strip rows [:rows, :n] read to the host (copied),
+    gathered into the (.., nr, n) strip."""
+    out = []
+    for (off, _dev), c in zip(shards.parts, carries):
+        a = _host_copy(c[..., :shards.nrows(nr, off), :n])
+        out.append(a if dtype is None else a.astype(dtype))
+    return shards.gather(out)
 
 
 def gcta_parts_rows(ws, sample_block=None, chunk=None, pad_to: int = 128,
@@ -636,29 +745,29 @@ def gcta_parts_rows(ws, sample_block=None, chunk=None, pad_to: int = 128,
                     device=None):
     """Row-strip CGCTA_AlgArith: yields (row0, nrows, cov rows float64,
     vgram rows int64, nlocus) per strip; start_row resumes at a later
-    strip. mesh= (column-sharded strips) is not ported and raises."""
+    strip. mesh= splits each strip's rows over every mesh device."""
     guard_count_snps(ws.n_snp, "GCTA rows")
-    refuse_routes("gcta_parts_rows", mesh)
     dev = resolve_device(device)
-    sample_block, n_pad, chunk, chunks = _row_tile_setup(
-        ws, sample_block, chunk, pad_to, 8, dev)
+    sh = _StripShards(ws, sample_block, chunk, 8, dev, mesh, pad_to)
     n = ws.n_samp
-    cov = torch.empty((sample_block, n_pad), dtype=torch.float64, device=dev)
-    vgr = torch.empty((sample_block, n_pad), dtype=torch.int32, device=dev)
-    for r0 in range(start_row, n, sample_block):
-        nr = min(sample_block, n - r0)
-        cov.zero_()
-        vgr.zero_()
-        nloc = torch.zeros((), dtype=torch.int64, device=dev)
-        for packed in chunks():
-            _gsum, _gnum, avg, scale, poly, _ = snp_stats(packed)
-            norm_gram_rows(packed, avg, scale, cov, r0, poly=poly,
-                           vcarry=vgr)
-            nloc += poly.sum()
+    cov = sh.carries(0, torch.float64)
+    vgr = sh.carries(0, torch.int32)
+    for r0 in range(start_row, n, sh.sample_block):
+        nr = min(sh.sample_block, n - r0)
+        for t in cov + vgr:
+            t.zero_()
+        nloc = torch.zeros((), dtype=torch.int64, device=sh.parts[0][1])
+        for pks in sh.chunks():
+            for k, (off, _dev) in enumerate(sh.parts):
+                _gsum, _gnum, avg, scale, poly, _ = snp_stats(pks[k])
+                norm_gram_rows(pks[k], avg, scale, cov[k], r0 + off,
+                               poly=poly, vcarry=vgr[k])
+                if k == 0:
+                    nloc += poly.sum()
         if verbose:
             print(f"GRM rows {r0 + nr}/{n}", flush=True)
-        yield (r0, nr, _host_copy(cov[:nr, :n]),
-               _host(vgr[:nr, :n]).astype(np.int64), int(nloc))
+        yield (r0, nr, _strip_rows(sh, cov, nr, n),
+               _strip_rows(sh, vgr, nr, n, np.int64), int(nloc))
 
 
 def basis_gram_rows(ws, sample_block=None, chunk=None, pad_to: int = 128,
@@ -668,113 +777,119 @@ def basis_gram_rows(ws, sample_block=None, chunk=None, pad_to: int = 128,
     (row0, nrows, B) with B (5, nrows, n) int64, the PairCounts base
     matrices' rows, with device memory O(block x n). The int32 strip carry
     flushes into a host int64 accumulator every ``count_flush_interval``
-    chunks. mesh= is not ported and raises."""
-    refuse_routes("basis_gram_rows", mesh)
+    chunks. mesh= splits each strip's rows over every mesh device."""
     dev = resolve_device(device)
-    sample_block, n_pad, chunk, chunks = _row_tile_setup(
-        ws, sample_block, chunk, pad_to, 20, dev)
+    sh = _StripShards(ws, sample_block, chunk, 20, dev, mesh, pad_to)
     n = ws.n_samp
-    flush_every = count_flush_interval(chunk)
-    carry = torch.empty((5, sample_block, n_pad), dtype=torch.int32,
-                        device=dev)
-    for r0 in range(start_row, n, sample_block):
-        nr = min(sample_block, n - r0)
-        carry.zero_()
+    flush_every = count_flush_interval(sh.chunk)
+    carry = sh.carries(5, torch.int32)
+    for r0 in range(start_row, n, sh.sample_block):
+        nr = min(sh.sample_block, n - r0)
+        for c in carry:
+            c.zero_()
         acc = None  # int64 flush target (see pair_counts)
-        for ci, packed in enumerate(chunks(), 1):
-            gram5_rows(packed, carry, r0)  # in place
+        for ci, pks in enumerate(sh.chunks(), 1):
+            for k, (off, _dev) in enumerate(sh.parts):
+                gram5_rows(pks[k], carry[k], r0 + off)  # in place
             if ci % flush_every == 0:
                 if acc is None:
-                    acc = np.zeros((5, nr, n), np.int64)
-                acc += _host(carry[:, :nr, :n])
-                carry.zero_()
-        c = _host(carry[:, :nr, :n]).astype(np.int64)
-        if acc is not None:
-            c += acc
+                    acc = [np.zeros((5, sh.rows, n), np.int64)
+                           for _ in carry]
+                for a, c in zip(acc, carry):
+                    a += _host(c[:, :, :n])
+                    c.zero_()
+        parts = []
+        for k, (off, _dev) in enumerate(sh.parts):
+            c = _host(carry[k][:, :, :n]).astype(np.int64)
+            if acc is not None:
+                c += acc[k]
+            parts.append(c[:, :sh.nrows(nr, off)])
         if verbose:
             print(f"pairwise-count rows {r0 + nr}/{n}", flush=True)
-        yield r0, nr, c
+        yield r0, nr, sh.gather(parts)
 
 
 def pca_cov_rows(ws, sample_block=None, bayesian: bool = False, chunk=None,
                  pad_to: int = 128, start_row: int = 0,
                  verbose: bool = False, mesh=None, device=None):
     """Row-strip exact-PCA covariance: yields (row0, nrows, cov rows).
-    mesh= is not ported and raises."""
-    refuse_routes("pca_cov_rows", mesh)
+    mesh= splits each strip's rows over every mesh device."""
     dev = resolve_device(device)
-    sample_block, n_pad, chunk, chunks = _row_tile_setup(
-        ws, sample_block, chunk, pad_to, 4, dev)
+    sh = _StripShards(ws, sample_block, chunk, 4, dev, mesh, pad_to)
     n = ws.n_samp
-    cov = torch.empty((sample_block, n_pad), dtype=torch.float64, device=dev)
-    for r0 in range(start_row, n, sample_block):
-        nr = min(sample_block, n - r0)
-        cov.zero_()
-        for packed in chunks():
-            _gsum, _gnum, avg, scale, _poly, _ = snp_stats(
-                packed, _pca_kind(bayesian))
-            norm_gram_rows(packed, avg, scale, cov, r0)
+    cov = sh.carries(0, torch.float64)
+    for r0 in range(start_row, n, sh.sample_block):
+        nr = min(sh.sample_block, n - r0)
+        for t in cov:
+            t.zero_()
+        for pks in sh.chunks():
+            for k, (off, _dev) in enumerate(sh.parts):
+                _gsum, _gnum, avg, scale, _poly, _ = snp_stats(
+                    pks[k], _pca_kind(bayesian))
+                norm_gram_rows(pks[k], avg, scale, cov[k], r0 + off)
         if verbose:
             print(f"covariance rows {r0 + nr}/{n}", flush=True)
-        yield r0, nr, _host_copy(cov[:nr, :n])
+        yield r0, nr, _strip_rows(sh, cov, nr, n)
 
 
 def king_homo_rows(ws, sample_block=None, chunk=None, pad_to: int = 128,
                    mesh=None, device=None):
     """Row-strip KING-homo parts: yields (row0, nrows, B (5, nrows, n)
     int64 count strips, waf rows, waf2 rows): ``gram5_rows`` and two
-    indicator-mode ``norm_gram_rows`` (factors sqrt(w) and w). mesh= is
-    not ported and raises."""
+    indicator-mode ``norm_gram_rows`` (factors sqrt(w) and w). mesh=
+    splits each strip's rows over every mesh device."""
     guard_count_snps(ws.n_snp, "KING-homo rows")
-    refuse_routes("king_homo_rows", mesh)
     dev = resolve_device(device)
-    sample_block, n_pad, chunk, chunks = _row_tile_setup(
-        ws, sample_block, chunk, pad_to, 28, dev)
+    sh = _StripShards(ws, sample_block, chunk, 28, dev, mesh, pad_to)
     n = ws.n_samp
-    grams = torch.empty((5, sample_block, n_pad), dtype=torch.int32,
-                        device=dev)
-    waf = torch.empty((sample_block, n_pad), dtype=torch.float64, device=dev)
-    waf2 = torch.empty_like(waf)
-    for r0 in range(0, n, sample_block):
-        nr = min(sample_block, n - r0)
-        for t in (grams, waf, waf2):
+    grams = sh.carries(5, torch.int32)
+    waf = sh.carries(0, torch.float64)
+    waf2 = sh.carries(0, torch.float64)
+    for r0 in range(0, n, sh.sample_block):
+        nr = min(sh.sample_block, n - r0)
+        for t in grams + waf + waf2:
             t.zero_()
-        for packed in chunks():
-            gram5_rows(packed, grams, r0)
-            _gsum, _gnum, avg, sqrt_w, _poly, w = snp_stats(packed, "king_w")
-            norm_gram_rows(packed, avg, sqrt_w, waf, r0, indicator=True)
-            norm_gram_rows(packed, avg, w, waf2, r0, indicator=True)
-        yield (r0, nr, _host(grams[:, :nr, :n]).astype(np.int64),
-               _host_copy(waf[:nr, :n]), _host_copy(waf2[:nr, :n]))
+        for pks in sh.chunks():
+            for k, (off, _dev) in enumerate(sh.parts):
+                gram5_rows(pks[k], grams[k], r0 + off)
+                _gsum, _gnum, avg, sqrt_w, _poly, w = snp_stats(pks[k],
+                                                                "king_w")
+                norm_gram_rows(pks[k], avg, sqrt_w, waf[k], r0 + off,
+                               indicator=True)
+                norm_gram_rows(pks[k], avg, w, waf2[k], r0 + off,
+                               indicator=True)
+        yield (r0, nr, _strip_rows(sh, grams, nr, n, np.int64),
+               _strip_rows(sh, waf, nr, n), _strip_rows(sh, waf2, nr, n))
 
 
 def eigmix_rows(ws, sample_block=None, chunk=None, pad_to: int = 128,
                 mesh=None, device=None):
     """Row-strip EIGMIX parts: yields (row0, nrows, cov rows, wvg rows,
     het counts); het is the whole per-sample vector, the same on every
-    yield (each strip streams every chunk). mesh= is not ported and
-    raises."""
+    yield (each strip streams every chunk; under a mesh, counted on this
+    process's first part). mesh= splits each strip's rows over every mesh
+    device."""
     guard_count_snps(ws.n_snp, "EIGMIX rows")
-    refuse_routes("eigmix_rows", mesh)
     dev = resolve_device(device)
-    sample_block, n_pad, chunk, chunks = _row_tile_setup(
-        ws, sample_block, chunk, pad_to, 8, dev)
+    sh = _StripShards(ws, sample_block, chunk, 8, dev, mesh, pad_to)
     n = ws.n_samp
-    cov = torch.empty((sample_block, n_pad), dtype=torch.float64, device=dev)
-    wvg = torch.empty_like(cov)
-    het = torch.empty(n_pad, dtype=torch.int32, device=dev)
-    for r0 in range(0, n, sample_block):
-        nr = min(sample_block, n - r0)
-        for t in (cov, wvg, het):
+    cov = sh.carries(0, torch.float64)
+    wvg = sh.carries(0, torch.float64)
+    het = torch.empty(sh.n_pad, dtype=torch.int32, device=sh.parts[0][1])
+    for r0 in range(0, n, sh.sample_block):
+        nr = min(sh.sample_block, n - r0)
+        for t in cov + wvg + [het]:
             t.zero_()
-        for packed in chunks():
-            _gsum, _gnum, avg, one, _poly, _ = snp_stats(packed, "unit")
-            norm_gram_rows(packed, avg, one, cov, r0)
-            sqrt_d = snp_stats(packed, "eigmix_d")[3]
-            norm_gram_rows(packed, avg, sqrt_d, wvg, r0, indicator=True)
-            het_count(packed, het)
-        yield (r0, nr, _host_copy(cov[:nr, :n]), _host_copy(wvg[:nr, :n]),
-               _host(het[:n]).astype(np.int64))
+        for pks in sh.chunks():
+            for k, (off, _dev) in enumerate(sh.parts):
+                _gsum, _gnum, avg, one, _poly, _ = snp_stats(pks[k], "unit")
+                norm_gram_rows(pks[k], avg, one, cov[k], r0 + off)
+                sqrt_d = snp_stats(pks[k], "eigmix_d")[3]
+                norm_gram_rows(pks[k], avg, sqrt_d, wvg[k], r0 + off,
+                               indicator=True)
+            het_count(pks[0], het)
+        yield (r0, nr, _strip_rows(sh, cov, nr, n),
+               _strip_rows(sh, wvg, nr, n), _host(het[:n]).astype(np.int64))
 
 
 def _warn_checkpoint(checkpoint, what: str) -> None:
@@ -800,29 +915,32 @@ def king_homo_counts(ws, chunk=None, pad_to: int = 128,
     (``ops.tiles.king_homo_parts_tiled``). Elsewhere checkpoint= warns
     and is not honored, as on the JAX package's in-HBM and row routes."""
     guard_count_snps(ws.n_snp, "KING-homo counts")
-    refuse_routes("king_homo_counts", mesh, tile_devices)
     dev = resolve_device(device)
-    if tile_rank is not None:
+    if tile_devices is not None or tile_rank is not None:
         from .tiles import king_homo_parts_tiled
 
-        return king_homo_parts_tiled(ws, chunk=chunk, verbose=verbose,
-                                     tile_rank=tile_rank,
-                                     checkpoint=checkpoint, device=dev)
+        return king_homo_parts_tiled(
+            ws, chunk=chunk, verbose=verbose, mesh=mesh,
+            devices=tile_devices, tile_rank=tile_rank,
+            checkpoint=checkpoint, device=dev)
     if checkpoint:
         from .tiles import king_homo_parts_tiled, probe_grid_meta
 
         if probe_grid_meta(checkpoint, 77, ws.n_snp,
                            ws.n_samp) is not None:
             return king_homo_parts_tiled(ws, chunk=chunk, verbose=verbose,
-                                         checkpoint=checkpoint, device=dev)
+                                         mesh=mesh, checkpoint=checkpoint,
+                                         device=dev)
     n_pad_blk, _nblk = _pad_blocks(ws.n_samp, pad_to)
-    if sample_block is None and 24.0 * n_pad_blk * n_pad_blk > 6e9:
+    if sample_block is None and (mesh is not None
+                                 or 24.0 * n_pad_blk * n_pad_blk > 6e9):
         sample_block = 4096
     if sample_block and past_staging_budget(ws):
         from .tiles import king_homo_parts_tiled
 
         return king_homo_parts_tiled(ws, chunk=chunk, verbose=verbose,
-                                     checkpoint=checkpoint, device=dev)
+                                     mesh=mesh, checkpoint=checkpoint,
+                                     device=dev)
     _warn_checkpoint(checkpoint, "KING-homo")
     n = ws.n_samp
     if sample_block:
@@ -831,7 +949,7 @@ def king_homo_counts(ws, chunk=None, pad_to: int = 128,
         waf2 = np.empty((n, n))
         for r0, nr, cs, w1, w2 in king_homo_rows(
                 ws, sample_block=sample_block, chunk=chunk, pad_to=pad_to,
-                device=dev):
+                mesh=mesh, device=dev):
             B[:, r0:r0 + nr] = cs
             waf[r0:r0 + nr] = w1
             waf2[r0:r0 + nr] = w2
@@ -868,29 +986,32 @@ def eigmix_parts(ws, chunk=None, pad_to: int = 128, verbose: bool = False,
     a tile-grid checkpoint (tag 76) from super tiles
     (``ops.tiles.eigmix_parts_tiled``). Elsewhere checkpoint= warns and is
     not honored, as on the JAX package's in-HBM and row routes."""
-    refuse_routes("eigmix_parts", mesh, tile_devices)
     dev = resolve_device(device)
-    if tile_rank is not None:
+    if tile_devices is not None or tile_rank is not None:
         from .tiles import eigmix_parts_tiled
 
-        return eigmix_parts_tiled(ws, chunk=chunk, verbose=verbose,
-                                  tile_rank=tile_rank, checkpoint=checkpoint,
-                                  device=dev)
+        return eigmix_parts_tiled(
+            ws, chunk=chunk, verbose=verbose, mesh=mesh,
+            devices=tile_devices, tile_rank=tile_rank,
+            checkpoint=checkpoint, device=dev)
     if checkpoint:
         from .tiles import eigmix_parts_tiled, probe_grid_meta
 
         if probe_grid_meta(checkpoint, 76, ws.n_snp,
                            ws.n_samp) is not None:
             return eigmix_parts_tiled(ws, chunk=chunk, verbose=verbose,
-                                      checkpoint=checkpoint, device=dev)
+                                      mesh=mesh, checkpoint=checkpoint,
+                                      device=dev)
     n_pad_blk, _nblk = _pad_blocks(ws.n_samp, pad_to)
-    if sample_block is None and 5.0 * n_pad_blk * n_pad_blk > 6e9:
+    if sample_block is None and (mesh is not None
+                                 or 5.0 * n_pad_blk * n_pad_blk > 6e9):
         sample_block = 4096
     if sample_block and past_staging_budget(ws):
         from .tiles import eigmix_parts_tiled
 
         return eigmix_parts_tiled(ws, chunk=chunk, verbose=verbose,
-                                  checkpoint=checkpoint, device=dev)
+                                  mesh=mesh, checkpoint=checkpoint,
+                                  device=dev)
     _warn_checkpoint(checkpoint, "EIGMIX")
     n = ws.n_samp
     if sample_block:
@@ -899,7 +1020,7 @@ def eigmix_parts(ws, chunk=None, pad_to: int = 128, verbose: bool = False,
         het = None
         for r0, nr, cs, wv, h in eigmix_rows(
                 ws, sample_block=sample_block, chunk=chunk, pad_to=pad_to,
-                device=dev):
+                mesh=mesh, device=dev):
             num[r0:r0 + nr] = cs
             wvg[r0:r0 + nr] = wv
             het = h

@@ -425,12 +425,150 @@ def _tile_walk(source, n_samp: int, saved_fn=None, rows=None):
         slab_i = None
 
 
-def _keyed_tile_stream(source, n_samp: int, saved_fn=None, rows=None):
-    """The JAX package's tile stream in its single-device form: yields
-    (key, walk item) with key 0 (tile_devices=, whole tiles on several
-    cards with one key each, is not ported)."""
-    return ((0, item) for item in _tile_walk(source, n_samp, saved_fn,
-                                             rows))
+class _PlacedSource:
+    """A slab source whose slabs are moved to ``device`` at load time (the
+    per-device sources of ``tile_devices=``; a slab already there is not
+    copied)."""
+
+    def __init__(self, source, device):
+        self._source = source
+        self.device = device
+
+    def slab(self, j: int) -> torch.Tensor:
+        return self._source.slab(j).to(self.device)
+
+    def __getattr__(self, name):
+        return getattr(self._source, name)
+
+
+def _interleave_walks(walks):
+    """Round-robin drain of per-device tile walks: yields (walk index,
+    item), so every device is fed while the host loads the others'
+    slabs."""
+    live = list(enumerate(walks))
+    while live:
+        nxt = []
+        for d, w in live:
+            item = next(w, None)
+            if item is not None:
+                yield d, item
+                nxt.append((d, w))
+        live = nxt
+
+
+def _device_walks(source, n_samp: int, devices, saved_fn, rows=None):
+    """Per-device placed sources and strided tile-row sub-walks of
+    ``tile_devices=`` (whole tiles on whole devices, no collectives):
+    device d walks the rows base[d::nd]. Returns (walks, devices used)."""
+    k = source.n_groups
+    base = list(rows) if rows is not None else list(range(k))
+    devs = [resolve_device(d) for d in devices]
+    nd = max(1, min(len(devs), len(base) or 1))
+    walks = [_tile_walk(_PlacedSource(source, dev), n_samp,
+                        saved_fn=saved_fn, rows=base[di::nd])
+             for di, dev in enumerate(devs[:nd])]
+    return walks, devs[:nd]
+
+
+def _keyed_tile_stream(source, n_samp: int, saved_fn=None, rows=None,
+                       devices=None):
+    """The tile stream of the two scheduling modes: (stream of (key, walk
+    item), the device of each key). Without ``devices`` one walk, key 0 on
+    the source's device; with them the interleaved per-device walks."""
+    if devices is not None:
+        walks, devs = _device_walks(source, n_samp, devices, saved_fn, rows)
+        return _interleave_walks(walks), devs
+    return (((0, item) for item in _tile_walk(source, n_samp, saved_fn,
+                                              rows)),
+            [source.device])
+
+
+def _check_schedule(mesh, devices) -> None:
+    if mesh is not None and devices is not None:
+        raise ValueError("pass mesh= (each tile split over the mesh) or "
+                         "devices= (whole-tile scheduling), not both")
+
+
+class _TileShards:
+    """A super tile split by sample rows over every device of a mesh: the
+    g tile rows cut into one range of whole packed bytes per mesh device
+    (global index order), each range's byte columns copied into a
+    sub-slab padded with missing (0xFF) samples to whole 64-sample tiles.
+    Device d computes the square sub-tiles (d, e) of its rows against
+    every column range e with the square tile kernels, so its rows of the
+    tile are complete; the rows are read to the host and gathered over
+    the process group in device order."""
+
+    def __init__(self, mesh, g: int):
+        self.mesh = mesh
+        ndev = mesh.size
+        w = -(-(g // 4) // ndev) * 4
+        self.ranges = [(min(g, d * w), min(g, (d + 1) * w))
+                       for d in range(ndev)]
+        self.wp = max(64, -(-w // 64) * 64)
+        self.parts = mesh.local_entries()
+
+    def sub(self, slab: torch.Tensor, d: int, device) -> torch.Tensor:
+        """Range d's sub-slab (S, wp/4) of a packed (S, g/4) slab."""
+        lo, hi = self.ranges[d]
+        out = torch.full((slab.shape[0], self.wp // 4), 0xFF,
+                         dtype=torch.uint8, device=slab.device)
+        out[:, :(hi - lo) // 4] = slab[:, lo // 4:hi // 4]
+        return out.to(device)
+
+    def rows(self, slab_i, slab_j, op):
+        """The whole tile as host arrays: ``op(si, sj, device)`` -> the
+        sub-tile's device tensors (..., wp, wp) of rows si against columns
+        sj; each output assembled to (..., g, g) over the mesh."""
+        local = []
+        for d, dev in self.parts:
+            si = self.sub(slab_i, d, dev)
+            nd = self.ranges[d][1] - self.ranges[d][0]
+            blocks = []
+            for e in range(len(self.ranges)):
+                ne = self.ranges[e][1] - self.ranges[e][0]
+                outs = op(si, self.sub(slab_j, e, dev), dev)
+                blocks.append([o[..., :nd, :ne].cpu().numpy() for o in outs])
+            local.append([np.concatenate(b, axis=-1) for b in zip(*blocks)])
+        rows = self.mesh.gather_host(local)
+        return [np.concatenate(r, axis=-2) for r in zip(*rows)]
+
+    def into(self, out, slab_i, slab_j, op) -> None:
+        """The whole tile into ``out`` (one (..., g, g) device tensor per
+        output of ``op``), each sub-tile copied device to device with no
+        host step. Under a process group the other processes' rows exist
+        only on their devices: the tile is then gathered on the host
+        (``rows``) and copied in."""
+        if self.mesh.group is not None:
+            for o, r in zip(out, self.rows(slab_i, slab_j, op)):
+                o.copy_(torch.from_numpy(r))
+            return
+        for d, dev in self.parts:
+            si = self.sub(slab_i, d, dev)
+            lo, hi = self.ranges[d]
+            for e, (clo, chi) in enumerate(self.ranges):
+                outs = op(si, self.sub(slab_j, e, dev), dev)
+                for o, t in zip(out, outs):
+                    o[..., lo:hi, clo:chi].copy_(t[..., :hi - lo, :chi - clo])
+
+    def diag_vector(self, slab, op):
+        """A per-sample vector of a diagonal tile's row slab: ``op(si,
+        device)`` -> (wp,) device tensor per range, gathered to (g,)."""
+        local = []
+        for d, dev in self.parts:
+            nd = self.ranges[d][1] - self.ranges[d][0]
+            local.append(op(self.sub(slab, d, dev), dev)[:nd].cpu().numpy())
+        return np.concatenate(self.mesh.gather_host(local))
+
+
+def _stats_on(devices, *arrays):
+    """{device: the per-SNP arrays as flat tensors on it} for every
+    distinct device."""
+    out = {}
+    for dev in devices:
+        if dev not in out:
+            out[dev] = _on(dev, *arrays)
+    return out
 
 
 def auto_tile_group(n_snp: int, slab_budget: float = 6.5e9,
@@ -472,13 +610,14 @@ def probe_grid_meta(checkpoint, tag: int, n_snp: int, n_samp: int):
 
 
 def _resolve_grid(ws, n_samp, group, chunk, checkpoint, tag, tile_rank,
-                  cell_sched: int, cell_plain: int, device):
+                  cell_sched: int, cell_plain: int, device, devices=None):
     """The (group, chunk) tile grid of one engine family: an existing
     checkpoint meta for (tag, n_snp, n_samp) wins over the automatic
     derivation, so an assembly run adopts the rank runs' grid; explicit
     group= and chunk= still override. cell_sched / cell_plain: bytes per
-    tile cell with and without tile_rank (a rank run takes the
-    conservative budget so every rank derives the same grid)."""
+    tile cell with and without tile_rank or devices= (a rank run takes the
+    conservative budget so every rank derives the same grid; devices=
+    keeps one tile per device in flight, as in the JAX package)."""
     got = probe_grid_meta(checkpoint, tag, ws.n_snp, n_samp) \
         if (group is None or chunk is None) else None
     if group is None:
@@ -487,7 +626,8 @@ def _resolve_grid(ws, n_samp, group, chunk, checkpoint, tag, tile_rank,
         else:
             group = auto_tile_group(
                 ws.n_snp, n_samp=n_samp,
-                bytes_per_cell=cell_sched if tile_rank is not None
+                bytes_per_cell=cell_sched if (tile_rank is not None
+                                              or devices is not None)
                 else cell_plain)
     group = -(-group // 128) * 128
     if chunk is None:
@@ -545,38 +685,53 @@ def _rank_rows_arg(source, tile_rank, checkpoint):
 
 def gcta_grm_tiles(source, n_samp: int, method: str = "GCTA",
                    checkpoint=None, verbose: bool = False,
-                   out_dtype=np.float64, rows=None):
+                   out_dtype=np.float64, mesh=None, devices=None, rows=None):
     """Super-tile GRM: yields (r0, c0, nr, nc, tile) over the upper tile
     triangle (r0 <= c0), one ``norm_gram_tile`` launch per tile. 'GCTA'
     divides by the per-pair missing denominator on the card
     (genPCA.cpp:1202-1236); 'Eigenstrat' yields the raw covariance (the
     caller scales by (n-1)/trace). Tiles are final, so the grid
-    checkpointer resumes at any completed subset."""
+    checkpointer resumes at any completed subset. mesh= splits each tile's
+    rows over every mesh device (``_TileShards``); devices= deals whole
+    tiles round-robin over the given devices (strided tile rows)."""
     gcta = method == "GCTA"
     if gcta:  # the int32 count gram sums one tile over every SNP
         guard_count_snps(source.n_snp, "super-tile GRM")
+    _check_schedule(mesh, devices)
     avg, scale, poly, _nloc = _stats_pass(source)
-    dev = source.device
-    av, sc, po = _on(dev, avg, scale, poly)
     tck = TileGridCheckpointer(
         checkpoint, meta=(71 if gcta else 72, source.n_snp, n_samp,
                           source.group, source.chunk))
     g = source.group
-    for i, j, r0, c0, nr, nc, payload in _tile_walk(
-            source, n_samp, saved_fn=tck.load, rows=rows):
+    stream, devs = _keyed_tile_stream(source, n_samp, tck.load, rows,
+                                      devices)
+    shards = _TileShards(mesh, g) if mesh is not None else None
+    stats = _stats_on(devs if shards is None
+                      else [d for _, d in shards.parts], avg, scale, poly)
+
+    def op(si, sj, dev):
+        av, sc, po = stats[dev]
+        n = si.shape[1] * 4
+        cov = torch.zeros((n, n), dtype=torch.float64, device=dev)
+        vgr = torch.zeros((n, n), dtype=torch.int32, device=dev) \
+            if gcta else None
+        norm_gram_tile(si, sj, av, sc, cov, po if gcta else None, vgr,
+                       divide=gcta)
+        return (cov,)
+
+    for key, (i, j, r0, c0, nr, nc, payload) in stream:
         if isinstance(payload, dict):
             yield r0, c0, nr, nc, payload["grm"]
             continue
         slab_i, slab_j = payload
         payload = None
-        cov = torch.zeros((g, g), dtype=torch.float64, device=dev)
-        vgr = torch.zeros((g, g), dtype=torch.int32, device=dev) \
-            if gcta else None
-        norm_gram_tile(_flat(slab_i), _flat(slab_j), av, sc, cov,
-                       po if gcta else None, vgr, divide=gcta)
-        slab_i = slab_j = vgr = None
-        tile = cov[:nr, :nc].cpu().numpy().astype(out_dtype)
-        cov = None
+        if shards is not None:
+            tile = shards.rows(_flat(slab_i), _flat(slab_j), op)[0]
+        else:
+            tile = op(_flat(slab_i), _flat(slab_j), devs[key])[0]
+            tile = tile.cpu().numpy()
+        slab_i = slab_j = None
+        tile = tile[:nr, :nc].astype(out_dtype)
         tck.save(i, j, grm=tile)
         if verbose:
             print(f"GRM tile ({i},{j}) rows {r0}..{r0 + nr} x cols "
@@ -584,29 +739,48 @@ def gcta_grm_tiles(source, n_samp: int, method: str = "GCTA",
         yield r0, c0, nr, nc, tile
 
 
+def _count_op(si, sj, dev):
+    """The five count grams of one (sub-)tile."""
+    n = si.shape[1] * 4
+    carry = torch.zeros((5, n, n), dtype=torch.int32, device=dev)
+    gram5_tile(si, sj, carry)
+    return (carry,)
+
+
+def tile_counts(shards, slab_i, slab_j, dev) -> np.ndarray:
+    """The (5, g, g) count grams of one tile as host int64: split over the
+    mesh (``shards``) or on ``dev``."""
+    if shards is not None:
+        return shards.rows(_flat(slab_i), _flat(slab_j),
+                           _count_op)[0].astype(np.int64)
+    return _count_op(_flat(slab_i), _flat(slab_j), dev)[0].cpu().numpy() \
+        .astype(np.int64)
+
+
 def basis_count_tiles(source, n_samp: int, checkpoint=None,
-                      verbose: bool = False, rows=None):
+                      verbose: bool = False, mesh=None, devices=None,
+                      rows=None):
     """Super-tile integer pairwise counts: yields (r0, c0, nr, nc, B
     (5, nr, nc) int64, the PairCounts base blocks) over the upper tile
-    triangle, one ``gram5_tile`` launch per tile (bit-exact)."""
+    triangle, one ``gram5_tile`` launch per tile (bit-exact). mesh= splits
+    each tile's rows over the mesh; devices= deals whole tiles over the
+    given devices."""
     guard_count_snps(source.n_snp, "super-tile counts")
+    _check_schedule(mesh, devices)
     tck = TileGridCheckpointer(
         checkpoint, meta=(75, source.n_snp, n_samp, source.group,
                           source.chunk))
-    g = source.group
-    dev = source.device
-    for i, j, r0, c0, nr, nc, payload in _tile_walk(
-            source, n_samp, saved_fn=tck.load, rows=rows):
+    stream, devs = _keyed_tile_stream(source, n_samp, tck.load, rows,
+                                      devices)
+    shards = _TileShards(mesh, source.group) if mesh is not None else None
+    for key, (i, j, r0, c0, nr, nc, payload) in stream:
         if isinstance(payload, dict):
             yield r0, c0, nr, nc, payload["b"]
             continue
         slab_i, slab_j = payload
         payload = None
-        carry = torch.zeros((5, g, g), dtype=torch.int32, device=dev)
-        gram5_tile(_flat(slab_i), _flat(slab_j), carry)
+        b = tile_counts(shards, slab_i, slab_j, devs[key])[:, :nr, :nc]
         slab_i = slab_j = None
-        b = carry[:, :nr, :nc].cpu().numpy().astype(np.int64)
-        carry = None
         tck.save(i, j, b=b)
         if verbose:
             print(f"count tile ({i},{j})", flush=True)
@@ -626,21 +800,23 @@ def _mirror_counts(B, b, r0, c0, nr, nc):
 
 def pair_counts_tiled(ws, group=None, chunk=None, checkpoint=None,
                       verbose: bool = False, meter=None, source=None,
-                      tile_rank=None, device=None):
+                      mesh=None, devices=None, tile_rank=None, device=None):
     """Assembled PairCounts from the super-tile engine (bit-exact). group=
     None derives the grid or adopts an existing checkpoint's.
     tile_rank=(rank, world): compute only this rank's tile rows into
-    checkpoint= and return None."""
+    checkpoint= and return None. mesh= / devices=: see
+    ``basis_count_tiles``."""
     n = ws.n_samp if ws is not None else source.n_samp
     if source is None:
         dev = resolve_device(device)
         group, chunk = _resolve_grid(ws, n, group, chunk, checkpoint, 75,
-                                     tile_rank, 40, 20, dev)
+                                     tile_rank, 40, 20, dev, devices)
         source = StoreSlabSource(ws, group, chunk, meter=meter, device=dev)
     rows, partial = _rank_rows_arg(source, tile_rank, checkpoint)
     B = None if partial else np.empty((5, n, n), np.int64)
     for r0, c0, nr, nc, b in basis_count_tiles(
-            source, n, checkpoint=checkpoint, verbose=verbose, rows=rows):
+            source, n, checkpoint=checkpoint, verbose=verbose, mesh=mesh,
+            devices=devices, rows=rows):
         if not partial:
             _mirror_counts(B, b, r0, c0, nr, nc)
     return None if partial else PairCounts(*B)
@@ -648,27 +824,26 @@ def pair_counts_tiled(ws, group=None, chunk=None, checkpoint=None,
 
 def eigmix_parts_tiled(ws, group=None, chunk=None, verbose=False,
                        meter=None, source=None, checkpoint=None,
-                       tile_rank=None, device=None):
+                       mesh=None, devices=None, tile_rank=None, device=None):
     """Assembled EIGMIX parts (num, wvg, het) from super tiles
     (genEIGMIX.cpp:43-157): per tile ``norm_gram_tile`` with unit scale
     (the centred covariance) and in indicator mode with sqrt(d),
     d = 4p(1-p) (the d-weighted validity gram), and on diagonal tiles
-    ``het_count`` of the row slab. checkpoint= saves one .npz per tile."""
+    ``het_count`` of the row slab. checkpoint= saves one .npz per tile.
+    mesh= / devices=: see ``basis_count_tiles``."""
     n = ws.n_samp if ws is not None else source.n_samp
     if source is None:
         dev = resolve_device(device)
         group, chunk = _resolve_grid(ws, n, group, chunk, checkpoint, 76,
-                                     tile_rank, 16, 8, dev)
+                                     tile_rank, 16, 8, dev, devices)
         source = StoreSlabSource(ws, group, chunk, meter=meter, device=dev)
     group = source.group
     guard_count_snps(source.n_snp, "super-tile EIGMIX")
+    _check_schedule(mesh, devices)
     # validate tile_rank before the stats pass reads the selection
     rows, partial = _rank_rows_arg(source, tile_rank, checkpoint)
     avg, _scale, _poly, _nl = _stats_pass(source)
     af = 0.5 * avg
-    dev = source.device
-    av, one, sqrt_d = _on(dev, avg, np.ones_like(avg),
-                          np.sqrt(4.0 * af * (1.0 - af)))
     tck = TileGridCheckpointer(
         checkpoint, meta=(76, source.n_snp, n, group, source.chunk))
     num = np.empty((n, n)) if not partial else None
@@ -688,28 +863,44 @@ def eigmix_parts_tiled(ws, group=None, chunk=None, verbose=False,
         if verbose:
             print(f"EIGMIX tile ({i},{j})", flush=True)
 
-    for _key, (i, j, r0, c0, nr, nc, payload) in _keyed_tile_stream(
-            source, n, tck.load, rows):
+    stream, devs = _keyed_tile_stream(source, n, tck.load, rows, devices)
+    shards = _TileShards(mesh, group) if mesh is not None else None
+    stats = _stats_on(devs if shards is None
+                      else [d for _, d in shards.parts], avg,
+                      np.ones_like(avg), np.sqrt(4.0 * af * (1.0 - af)))
+
+    def op(si, sj, dev):
+        av, one, sqrt_d = stats[dev]
+        m = si.shape[1] * 4
+        cov = torch.zeros((m, m), dtype=torch.float64, device=dev)
+        wv = torch.zeros_like(cov)
+        norm_gram_tile(si, sj, av, one, cov)
+        norm_gram_tile(si, sj, av, sqrt_d, wv, indicator=True)
+        return cov, wv
+
+    def het_op(si, dev):
+        h = torch.zeros(si.shape[1] * 4, dtype=torch.int32, device=dev)
+        het_count(si, h)
+        return h
+
+    for key, (i, j, r0, c0, nr, nc, payload) in stream:
         if isinstance(payload, dict):
             write(i, j, r0, c0, nr, nc, payload["num"], payload["wvg"],
                   payload.get("het"))
             continue
         si, sj = (_flat(s) for s in payload)
         payload = None
-        cov = torch.zeros((group, group), dtype=torch.float64, device=dev)
-        wv = torch.zeros_like(cov)
-        norm_gram_tile(si, sj, av, one, cov)
-        norm_gram_tile(si, sj, av, sqrt_d, wv, indicator=True)
-        het_c = None
-        if i == j:
-            h = torch.zeros(group, dtype=torch.int32, device=dev)
-            het_count(si, h)
-            het_c = h[:nr].cpu().numpy()
+        if shards is not None:
+            num_c, wvg_c = shards.rows(si, sj, op)
+            het_c = shards.diag_vector(si, het_op) if i == j else None
+        else:
+            num_c, wvg_c = (t.cpu().numpy() for t in op(si, sj, devs[key]))
+            het_c = (het_op(si, devs[key]).cpu().numpy() if i == j
+                     else None)
         si = sj = None
-        num_c = cov[:nr, :nc].cpu().numpy()
-        wvg_c = wv[:nr, :nc].cpu().numpy()
-        cov = wv = None
+        num_c, wvg_c = num_c[:nr, :nc], wvg_c[:nr, :nc]
         if i == j:
+            het_c = het_c[:nr]
             tck.save(i, j, num=num_c, wvg=wvg_c, het=het_c)
         else:
             tck.save(i, j, num=num_c, wvg=wvg_c)
@@ -719,25 +910,26 @@ def eigmix_parts_tiled(ws, group=None, chunk=None, verbose=False,
 
 def king_homo_parts_tiled(ws, group=None, chunk=None, verbose=False,
                           meter=None, source=None, checkpoint=None,
-                          tile_rank=None, device=None):
+                          mesh=None, devices=None, tile_rank=None,
+                          device=None):
     """Assembled KING-homo parts (PairCounts, waf, waf2) from super tiles
     (genKING.cpp:58-266): per tile ``gram5_tile`` and two indicator-mode
     ``norm_gram_tile`` launches with sqrt(w) and w, w = p(1-p) from the
-    pass-1 statistics. checkpoint= saves one .npz per tile."""
+    pass-1 statistics. checkpoint= saves one .npz per tile. mesh= /
+    devices=: see ``basis_count_tiles``."""
     n = ws.n_samp if ws is not None else source.n_samp
     if source is None:
         dev = resolve_device(device)
         group, chunk = _resolve_grid(ws, n, group, chunk, checkpoint, 77,
-                                     tile_rank, 72, 36, dev)
+                                     tile_rank, 72, 36, dev, devices)
         source = StoreSlabSource(ws, group, chunk, meter=meter, device=dev)
     group = source.group
     guard_count_snps(source.n_snp, "super-tile KING-homo")
+    _check_schedule(mesh, devices)
     rows, partial = _rank_rows_arg(source, tile_rank, checkpoint)
     avg, _scale, _poly, _nl = _stats_pass(source)
     p = 0.5 * avg
     w = p * (1.0 - p)
-    dev = source.device
-    av, sqrt_w, w_d = _on(dev, avg, np.sqrt(w), w)
     tck = TileGridCheckpointer(
         checkpoint, meta=(77, source.n_snp, n, group, source.chunk))
     B = np.empty((5, n, n), np.int64) if not partial else None
@@ -756,25 +948,36 @@ def king_homo_parts_tiled(ws, group=None, chunk=None, verbose=False,
         if verbose:
             print(f"KING-homo tile ({i},{j})", flush=True)
 
-    for _key, (i, j, r0, c0, nr, nc, payload) in _keyed_tile_stream(
-            source, n, tck.load, rows):
+    stream, devs = _keyed_tile_stream(source, n, tck.load, rows, devices)
+    shards = _TileShards(mesh, group) if mesh is not None else None
+    stats = _stats_on(devs if shards is None
+                      else [d for _, d in shards.parts], avg, np.sqrt(w), w)
+
+    def op(si, sj, dev):
+        av, sqrt_w, w_d = stats[dev]
+        m = si.shape[1] * 4
+        grams = torch.zeros((5, m, m), dtype=torch.int32, device=dev)
+        w1 = torch.zeros((m, m), dtype=torch.float64, device=dev)
+        w2 = torch.zeros_like(w1)
+        gram5_tile(si, sj, grams)
+        norm_gram_tile(si, sj, av, sqrt_w, w1, indicator=True)
+        norm_gram_tile(si, sj, av, w_d, w2, indicator=True)
+        return grams, w1, w2
+
+    for key, (i, j, r0, c0, nr, nc, payload) in stream:
         if isinstance(payload, dict):
             write(i, j, r0, c0, nr, nc, payload["b"], payload["waf"],
                   payload["waf2"])
             continue
         si, sj = (_flat(s) for s in payload)
         payload = None
-        grams = torch.zeros((5, group, group), dtype=torch.int32, device=dev)
-        w1 = torch.zeros((group, group), dtype=torch.float64, device=dev)
-        w2 = torch.zeros_like(w1)
-        gram5_tile(si, sj, grams)
-        norm_gram_tile(si, sj, av, sqrt_w, w1, indicator=True)
-        norm_gram_tile(si, sj, av, w_d, w2, indicator=True)
+        if shards is not None:
+            outs = shards.rows(si, sj, op)
+        else:
+            outs = [t.cpu().numpy() for t in op(si, sj, devs[key])]
         si = sj = None
-        b = grams[:, :nr, :nc].cpu().numpy().astype(np.int64)
-        w1c = w1[:nr, :nc].cpu().numpy()
-        w2c = w2[:nr, :nc].cpu().numpy()
-        grams = w1 = w2 = None
+        b = outs[0][:, :nr, :nc].astype(np.int64)
+        w1c, w2c = outs[1][:nr, :nc], outs[2][:nr, :nc]
         tck.save(i, j, b=b, waf=w1c, waf2=w2c)
         write(i, j, r0, c0, nr, nc, b, w1c, w2c)
     return None if partial else (PairCounts(*B), waf, waf2)
@@ -782,25 +985,26 @@ def king_homo_parts_tiled(ws, group=None, chunk=None, verbose=False,
 
 def grm_tiled(ws, group=None, method: str = "GCTA", chunk=None,
               checkpoint=None, verbose: bool = False, meter=None,
-              source=None, tile_rank=None, device=None):
+              source=None, mesh=None, devices=None, tile_rank=None,
+              device=None):
     """Assembled (n x n) GRM from the super-tile engine (both triangles
     mirrored); models.grm takes it past the slab-staging budget or on
     request. tile_rank=(rank, world): compute only this rank's
     weight-balanced tile-row share into checkpoint= and return None; a
     tile_rank=None run over the same checkpoint then assembles the matrix
-    without recomputing."""
+    without recomputing. mesh= / devices=: see ``gcta_grm_tiles``."""
     n = ws.n_samp if ws is not None else source.n_samp
     if source is None:
         dev = resolve_device(device)
         group, chunk = _resolve_grid(ws, n, group, chunk, checkpoint,
                                      71 if method == "GCTA" else 72,
-                                     tile_rank, 8, 8, dev)
+                                     tile_rank, 8, 8, dev, devices)
         source = StoreSlabSource(ws, group, chunk, meter=meter, device=dev)
     rows, partial = _rank_rows_arg(source, tile_rank, checkpoint)
     mat = None if partial else np.empty((n, n))
     for r0, c0, nr, nc, tile in gcta_grm_tiles(
             source, n, method=method, checkpoint=checkpoint,
-            verbose=verbose, rows=rows):
+            verbose=verbose, mesh=mesh, devices=devices, rows=rows):
         if partial:
             continue
         mat[r0:r0 + nr, c0:c0 + nc] = tile

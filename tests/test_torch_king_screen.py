@@ -115,7 +115,7 @@ def test_king_screen_hits_are_the_exact_candidates(n, cutoff):
     from snprelate_tpu.ops import pairwise as jpw
     from snprelate_tpu.workspace import init_workspace as jinit
     from snprelate_tpu_torch.models.king import king_screen_rows
-    from snprelate_tpu_torch.ops.pairwise import _row_tile_setup
+    from snprelate_tpu_torch.ops.pairwise import _StripShards
     from snprelate_tpu_torch.workspace import init_workspace as tinit
 
     jdata, tdata = _data(n)
@@ -124,7 +124,7 @@ def test_king_screen_hits_are_the_exact_candidates(n, cutoff):
     tws = tinit(tdata, missing_rate=float("nan"))[0]
     c = jpw.pair_counts(jws, chunk=CHUNK)
     dev = torch.device("cpu")
-    block, n_pad, _, chunks = _row_tile_setup(tws, BLOCK, CHUNK, 128, 20, dev)
+    shards = _StripShards(tws, BLOCK, CHUNK, 20, dev)
     same = (fam[:, None] == fam[None, :]) & (fam[:, None] >= 0)
     with np.errstate(divide="ignore", invalid="ignore"):
         kin = np.where(same, 0.5 - c.sum_sq / (2.0 * (c.n1_het + c.n2_het)),
@@ -132,7 +132,7 @@ def test_king_screen_hits_are_the_exact_candidates(n, cutoff):
                                                           c.n2_het)))
     exact = np.tril(np.nan_to_num(kin, nan=-np.inf) >= cutoff, -1)
     found = np.zeros((n, n), bool)
-    for r0, h in king_screen_rows(chunks, n, n_pad, fam, block, cutoff, dev):
+    for r0, h in king_screen_rows(shards, n, fam, cutoff):
         i, j = h[0] + r0, h[1]
         assert (j < i).all()
         key = i * n + j
@@ -145,18 +145,25 @@ def test_king_screen_hits_are_the_exact_candidates(n, cutoff):
 
 
 @pytest.mark.parametrize("kw", [
-    {"tiles": True}, {"tile_rank": (0, 2)}, {"mesh": object()},
-    {"tile_devices": [0, 1]}, {"auto": True}])
+    {"tiles": True}, {"tile_rank": (0, 2)}, {"mesh": (2, 1)},
+    {"tile_devices": 2}, {"auto": True}])
 def test_selection_refuses_unported_routes(kw, monkeypatch):
-    """mesh= and tile_devices= raise NotImplementedError naming ROADMAP
-    item 12; the super-tile route (tiles=True, tile_rank=, and the switch
-    past the slab budget) is ported and returns the screen (equal to the
-    JAX package's in test_torch_tiles.py); tile_rank with tiles=False
-    raises."""
+    """Every route argument takes its route. mesh= and tile_devices=
+    raised NotImplementedError (ROADMAP item 12) until the mesh routes
+    were ported: the strips split over a two-device CPU mesh and the
+    tiles dealt over two CPU devices now equal the JAX package's screen on
+    its own mesh or devices, in values and order. The super-tile route
+    (tiles=True, tile_rank=, and the switch past the slab budget) returns
+    the screen (equal to the JAX package's in test_torch_tiles.py);
+    tile_rank with tiles=False raises."""
+    import jax
+    import snprelate_tpu as jsr
     import snprelate_tpu_torch as tsr
+    from snprelate_tpu.parallel.mesh import make_mesh as jmesh
     from snprelate_tpu_torch.ops import pairwise as tpw
+    from snprelate_tpu_torch.parallel.mesh import make_mesh
 
-    _, tdata = _data(129)
+    jdata, tdata = _data(129)
     kw = dict(kw)
     strips = tsr.king_ibd_selection(tdata, CUT, tiles=False, device="cpu")
     if kw.pop("auto", False):  # past the slab budget: the super-tile switch
@@ -165,8 +172,16 @@ def test_selection_refuses_unported_routes(kw, monkeypatch):
         _same_dict(tsr.king_ibd_selection(tdata, CUT, tiles=False,
                                           device="cpu"), strips)
     if "mesh" in kw or "tile_devices" in kw:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tsr.king_ibd_selection(tdata, CUT, device="cpu", **kw)
+        if "mesh" in kw:
+            jkw = {"mesh": jmesh(*kw["mesh"], devices=jax.devices()[:2])}
+            tkw = {"mesh": make_mesh(*kw["mesh"], ["cpu"] * 2)}
+        else:
+            jkw = {"tile_devices": jax.devices()[:2]}
+            tkw = {"tile_devices": ["cpu"] * 2}
+        got = tsr.king_ibd_selection(tdata, CUT, sample_block=BLOCK,
+                                     device="cpu", **tkw)
+        _same_dict(got, jsr.king_ibd_selection(jdata, CUT,
+                                               sample_block=BLOCK, **jkw))
     else:
         got = tsr.king_ibd_selection(tdata, CUT, device="cpu", **kw)
         if "tile_rank" not in kw:  # one tile: the strips' order too

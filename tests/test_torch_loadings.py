@@ -153,28 +153,42 @@ def test_eigmix_loadings_match_jax(cohort):
 
 
 def test_refused_routes(cohort, jax_pca):
+    """mesh= on the loadings raised NotImplementedError (ROADMAP item 12)
+    until the mesh routes were ported: each call now runs over a
+    two-device CPU mesh and equals the JAX package's on its own mesh.
+    outgds= (the GDS writer) and a foreign pcaobj still raise."""
+    import jax
+    import snprelate_tpu as jsr
     import snprelate_tpu_torch as tsr
+    from snprelate_tpu.ops import loadings as JL
+    from snprelate_tpu.parallel.mesh import make_mesh as jmesh
+    from snprelate_tpu.workspace import init_workspace as jinit
     from snprelate_tpu_torch.ops import loadings as L
+    from snprelate_tpu_torch.parallel.mesh import make_mesh
     from snprelate_tpu_torch.workspace import init_workspace
 
-    _, tdata = cohort
-    r = _port_pca(jax_pca[False])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tsr.pca_corr(r, tdata, mesh=object(), device="cpu")
+    jdata, tdata = cohort
+    jm = jmesh(2, 1, devices=jax.devices()[:2])
+    tm = make_mesh(2, 1, ["cpu", "cpu"])
+    jp = jax_pca[False]
+    r = _port_pca(jp)
+    got = tsr.pca_corr(r, tdata, mesh=tm, device="cpu")
+    _close(got.snpcorr, jsr.pca_corr(jp, jdata, mesh=jm).snpcorr)
     with pytest.raises(NotImplementedError, match="GDS writer"):
         tsr.pca_corr(r, tdata, outgds="x.gds", device="cpu")
-    load = tsr.pca_snp_loading(r, tdata, device="cpu")
-    for call in (lambda: tsr.pca_snp_loading(r, tdata, mesh=object(),
-                                             device="cpu"),
-                 lambda: tsr.pca_samp_loading(load, tdata, mesh=object(),
-                                              device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            call()
-    ws, _ = init_workspace(tdata, autosome_only=False,
-                           remove_monosnp=False)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        L.eigmix_snp_loadings(ws, np.zeros((N, 2)), np.full(ws.n_snp, 0.3),
-                              mesh=object(), device="cpu")
+    load = tsr.pca_snp_loading(r, tdata, mesh=tm, device="cpu")
+    jload = jsr.pca_snp_loading(jp, jdata, mesh=jm)
+    _close(load.snploading, jload.snploading)
+    _close(tsr.pca_samp_loading(load, tdata, mesh=tm,
+                                device="cpu").eigenvect,
+           jsr.pca_samp_loading(jload, jdata, mesh=jm).eigenvect)
+    kw = dict(autosome_only=False, remove_monosnp=False)
+    ws, _ = init_workspace(tdata, **kw)
+    jws, _ = jinit(jdata, **kw)
+    e = np.random.default_rng(1).standard_normal((N, 2))
+    af = np.full(ws.n_snp, 0.3)
+    _close(L.eigmix_snp_loadings(ws, e, af, mesh=tm, device="cpu"),
+           JL.eigmix_snp_loadings(jws, e, af, mesh=jm))
     with pytest.raises(TypeError, match="PCAResult"):
         tsr.pca_corr(object(), tdata, device="cpu")
 

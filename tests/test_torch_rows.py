@@ -310,15 +310,15 @@ def test_strip_checkpoints_hand_over(tmp_path, tag, direction):
 
 ROUTES = [
     ("ibs", {"tile_rank": (0, 2)}, "item 7"),
-    ("ibs_num", {"mesh": object()}, "item 12"),
-    ("ibd_king", {"tile_devices": [0, 1]}, "item 7"),
-    ("diss", {"mesh": object()}, "item 12"),
+    ("ibs_num", {"mesh": (2, 1)}, "item 12"),
+    ("ibd_king", {"tile_devices": 2}, "item 7"),
+    ("diss", {"mesh": (2, 2)}, "item 12"),
     ("ibd_mom", {"tile_rank": (1, 2)}, "item 7"),
-    ("indiv_beta", {"mesh": object()}, "item 12"),
-    ("eigmix", {"tile_devices": [0]}, "item 7"),
-    ("pca", {"mesh": object()}, "item 12"),
+    ("indiv_beta", {"mesh": (4, 1)}, "item 12"),
+    ("eigmix", {"tile_devices": 1}, "item 7"),
+    ("pca", {"mesh": (2, 1)}, "item 12"),
     ("grm", {"sample_block": BLOCK, "tiles": True}, "item 7"),
-    ("grm", {"mesh": object()}, "item 12"),
+    ("grm", {"mesh": (2, 2)}, "item 12"),
     ("grm", {"sample_block": BLOCK, "budget": 1000}, "item 7"),
     ("ibs_num", {"sample_block": BLOCK, "budget": 1000}, "item 7"),
     ("ibd_king", {"type": "KING-homo", "sample_block": BLOCK,
@@ -329,21 +329,59 @@ ROUTES = [
 ]
 
 
+def _mesh_args(kw):
+    """The route arguments of a mesh= or tile_devices= case for both
+    packages: a (data, samp) mesh over that many CPU devices (the JAX
+    package's conftest devices, the port's 'cpu' entries), or that many
+    devices for the whole tiles."""
+    import jax
+    from snprelate_tpu.parallel.mesh import make_mesh as jmesh
+    from snprelate_tpu_torch.parallel.mesh import make_mesh
+
+    if "mesh" in kw:
+        d, s = kw["mesh"]
+        return ({"mesh": jmesh(d, s, devices=jax.devices()[:d * s])},
+                {"mesh": make_mesh(d, s, ["cpu"] * (d * s))})
+    k = kw["tile_devices"]
+    return ({"tile_devices": jax.devices()[:k]},
+            {"tile_devices": ["cpu"] * k})
+
+
+def _same_result(got, want):
+    """Every numeric array field equal (integers) or within RTOL (floats;
+    eigenvectors up to sign)."""
+    for k, w in vars(want).items():
+        if not (isinstance(w, np.ndarray) and w.dtype.kind in "fiu"):
+            continue
+        g = getattr(got, k)
+        if k == "eigenvect":
+            g, w = np.abs(g), np.abs(w)
+        if w.dtype.kind in "iu":
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+            fin = np.isfinite(w)
+            _close(g[fin], w[fin])
+
+
 @pytest.mark.parametrize("fn,kw,item", ROUTES)
 def test_unported_routes_raise(fn, kw, item, monkeypatch, tmp_path):
-    """mesh= and tile_devices= name routes the port does not have: they
-    raise NotImplementedError naming ROADMAP item 12 and fall back to no
-    other route. The cases that named item 7 (tile_rank=, tiles=True, the
-    automatic super-tile switch forced with a small slab budget, a
-    super-tile grid checkpoint) are ported now: each takes the tile route
-    (the walk runs, or a tile_rank without checkpoint= is refused as in
-    the JAX package) instead of raising; their results are held against
-    the JAX package's in test_torch_tiles.py."""
+    """Every route argument takes its route. The cases that named item 12
+    (mesh=, tile_devices=) raised NotImplementedError until the mesh
+    routes were ported: each now runs its route on CPU device lists and
+    equals the JAX package's call on its own mesh or devices
+    (tile_devices= takes the tile walk). The cases that named item 7
+    (tile_rank=, tiles=True, the automatic super-tile switch forced with a
+    small slab budget, a super-tile grid checkpoint) each take the tile
+    route (the walk runs, or a tile_rank without checkpoint= is refused as
+    in the JAX package); their results are held against the JAX package's
+    in test_torch_tiles.py."""
+    import snprelate_tpu as jsr
     import snprelate_tpu_torch as tsr
     from snprelate_tpu_torch.ops import pairwise as tpw
     from snprelate_tpu_torch.ops import tiles as tt
 
-    _, tdata = datasets(129, n_snp=N_SNP)
+    jdata, tdata = datasets(129, n_snp=N_SNP)
     kw = dict(kw)
     if "budget" in kw:
         monkeypatch.setattr(tpw, "SLAB_STAGING_BUDGET", kw.pop("budget"))
@@ -359,18 +397,21 @@ def test_unported_routes_raise(fn, kw, item, monkeypatch, tmp_path):
         np.save(ckpt + ".meta.npy", np.array([kw["checkpoint"], ws.n_snp,
                                               ws.n_samp, 128, 256]))
         kw["checkpoint"] = ckpt
+    walks = []
+    walk = tt._tile_walk
+    monkeypatch.setattr(tt, "_tile_walk",
+                        lambda *a, **k: walks.append(1) or walk(*a, **k))
     if item == "item 12" or "tile_devices" in kw:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            getattr(tsr, fn)(tdata, device="cpu", **kw)
+        jkw, tkw = _mesh_args(kw)
+        want = getattr(jsr, fn)(jdata, chunk=CHUNK, **jkw)
+        got = getattr(tsr, fn)(tdata, chunk=CHUNK, device="cpu", **tkw)
+        _same_result(got, want)
+        assert bool(walks) == ("tile_devices" in kw)
         return
     if "tile_rank" in kw:
         with pytest.raises(ValueError, match="needs checkpoint"):
             getattr(tsr, fn)(tdata, device="cpu", **kw)
         kw["checkpoint"] = str(tmp_path / "rank")
-    walks = []
-    walk = tt._tile_walk
-    monkeypatch.setattr(tt, "_tile_walk",
-                        lambda *a, **k: walks.append(1) or walk(*a, **k))
     res = getattr(tsr, fn)(tdata, device="cpu", **kw)
     assert walks and (res is None) == ("tile_rank" in kw)
 
