@@ -3,14 +3,16 @@
 Each ``csrc/<name>.cu`` has a plain C entry ``<name>_launch`` (and may have
 more, ``<entry>_launch``, for the same kernel's other modes) and compiles
 on its own into ``_build/<name>-<digest>.so`` inside the package, at first
-use, for ``sm_90a`` (Hopper). The digest covers the source and the flags,
-so an edited kernel is rebuilt and a stale library is never loaded. Nothing
-here runs when the module is imported.
+use, for ``sm_90a`` (Hopper). The digest covers the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt and
+a stale library is never loaded. Nothing here runs when the module is
+imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -37,10 +39,12 @@ def _nvcc() -> str:
 
 def _library(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    h = hashlib.sha256()
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names) -> dict:

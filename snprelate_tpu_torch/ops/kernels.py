@@ -64,6 +64,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -87,8 +88,8 @@ _ARGTYPES = {
                           _L, _P),
     "snp_stats": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "norm_gram": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P),
-    "rand_h": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P),
-    "rand_yt": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P),
+    "rand_h": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
+    "rand_yt": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     "het_count": (_P, _I, _I, _P, _P),
     "gram5_tile": (_P, _P, _I, _I, _P, _P),
     "norm_gram_tile": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P),
@@ -510,14 +511,64 @@ def _check_rand(packed, avg, scale):
     return S, B
 
 
-def _axis_slice(n: int, tiles: int, device: torch.device) -> int:
+def _axis_slice(n: int, want: int, depth: int = 32) -> int:
     """Length of a slice of a kernel's summed axis of length n (samples for
-    rand_h and pc_corr, SNPs for rand_yt): enough slices that the
-    (tiles x slices) grid gives about four blocks per SM, each slice a
-    multiple of 32 and at least 512 long."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, min(-(-4 * sms // max(tiles, 1)), n // 512))
-    return -(-n // want // 32) * 32
+    rand_h and pc_corr, SNPs for rand_yt) cut into about ``want`` slices:
+    each slice a multiple of ``depth`` (the kernel's stage) and, unless the
+    axis is shorter, at least 512 long."""
+    want = max(1, min(want, n // 512))
+    return max(-(-n // want // depth) * depth, depth)
+
+
+class RandPlan(NamedTuple):
+    """The launch of K3a rand_h or K3b rand_yt (see :func:`rand_plan`)."""
+    width: int       # columns per block tile: 32 or 64
+    row_tiles: int   # blocks along the output rows (128 rows each)
+    col_tiles: int   # blocks along the columns
+    slice_len: int   # summed-axis entries per slice, a multiple of RAND_DEPTH
+    nslice: int      # slices: the grid's third axis
+    part: int        # float64 entries of the partial-tile scratch (0: none)
+    y2part: int      # float64 entries of rand_h's partial y2 sums (0: none)
+
+
+RAND_ROWS = 128   # output rows per block of rand_h / rand_yt
+RAND_DEPTH = 64   # summed-axis entries per shared-memory stage
+# resident blocks per SM by tile width: 16 warps of at most 128 registers,
+# 48 / 80 KB of shared memory a block (csrc/rand_mma.cuh)
+RAND_PER_SM = {32: 4, 64: 2}
+
+
+def rand_plan(length: int, rows: int, c: int, sms: int) -> RandPlan:
+    """The tiles, slices and scratch of one rand_h or rand_yt launch: the
+    summed axis of ``length`` (rand_h: the N samples; rand_yt: the S SNPs),
+    ``rows`` output rows (rand_h: S; rand_yt: N) in tiles of 128, ``c``
+    columns and ``sms`` SMs. The width is 32 for c <= 32 (no masked
+    columns at the loadings' 32), else 64 (c = 320 and 704 are whole
+    64-wide tiles). The summed axis is cut into the fewest slices (each at least 512
+    long) that keep the card's resident blocks at least 90 % busy over the
+    waves of tiles x slices (the most busy count if none does), the
+    partial tiles going to scratch and summed in slice order; one slice
+    needs no scratch."""
+    width = 32 if c <= 32 else 64
+    row_tiles, col_tiles = -(-rows // RAND_ROWS), -(-c // width)
+    tiles = max(row_tiles * col_tiles, 1)
+    slots = RAND_PER_SM[width] * sms
+
+    def busy(k: int) -> float:
+        return tiles * k / (-(-tiles * k // slots) * slots)
+
+    ks = range(1, max(1, length // 512) + 1)
+    want = next((k for k in ks if busy(k) >= 0.9), max(ks, key=busy))
+    slice_len = _axis_slice(length, want, RAND_DEPTH)
+    nslice = max(1, -(-length // slice_len))
+    many = nslice > 1
+    return RandPlan(width, row_tiles, col_tiles, slice_len, nslice,
+                    nslice * rows * c if many else 0,
+                    nslice * rows if many else 0)
+
+
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def rand_h_plain(packed, avg, scale, g, h, y2=None) -> None:
@@ -536,7 +587,10 @@ def rand_h(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
     sample group: every SNP of the selection, one group's samples), its
     per-SNP avg and scale (S,) and g (N, k) float64; with y2 (S,)
     float64, also y2 += the sum of y^2 of each row. Pass a zeroed h for
-    H = Y G."""
+    H = Y G. On the card, Y is decoded from the codes in registers and the
+    product runs on the float64 tensor cores (``csrc/rand_h.cu``), launched
+    as :func:`rand_plan` says; the sample slices' partial tiles are added
+    in slice order, so a second call gives the same bits."""
     S, B = _check_rand(packed, avg, scale)
     dev, n = packed.device, 4 * B
     if g.dim() != 2:
@@ -548,17 +602,15 @@ def rand_h(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
         _check(y2, "y2", torch.float64, (S,), dev)
     if not packed.is_cuda:
         return rand_h_plain(packed, avg, scale, g, h, y2)
-    slice_len = _axis_slice(n, -(-S // 64) * -(-k // 64), dev)
-    nslice = -(-n // slice_len)
-    part = y2part = None
-    if nslice > 1:  # few rows: partial tiles per slice, added in order
-        part = torch.empty((nslice, S, k), dtype=torch.float64, device=dev)
-        if y2 is not None:
-            y2part = torch.empty((nslice, S), dtype=torch.float64,
-                                 device=dev)
+    plan = rand_plan(n, S, k, _sms(dev))
+    f64 = dict(dtype=torch.float64, device=dev)
+    table = torch.empty((S, 4), **f64)
+    part = torch.empty(plan.part, **f64) if plan.part else None
+    y2part = (torch.empty(plan.y2part, **f64)
+              if plan.y2part and y2 is not None else None)
     _launch("rand_h", dev, packed.data_ptr(), S, B, avg.data_ptr(),
-            scale.data_ptr(), g.data_ptr(), k, slice_len,
-            None if part is None else part.data_ptr(),
+            scale.data_ptr(), g.data_ptr(), k, plan.width, plan.slice_len,
+            table.data_ptr(), None if part is None else part.data_ptr(),
             None if y2part is None else y2part.data_ptr(), h.data_ptr(),
             None if y2 is None else y2.data_ptr())
     rand_h.launches += 1
@@ -576,9 +628,12 @@ def rand_yt(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
             m: torch.Tensor, carry: torch.Tensor) -> None:
     """carry (N, c) float64 += Y' M, updated in place, of the
     randomized-PCA block of packed (S, N/4) rows (a chunk or a flattened
-    slab), its per-SNP avg and scale (S,) and m (S, c) float64. Where the
-    carry's tiles do not fill the card (few samples), the SNP axis is cut
-    into slices, added in order (bitwise repeatable)."""
+    slab), its per-SNP avg and scale (S,) and m (S, c) float64. On the
+    card, Y' is decoded from the codes in registers and the product runs
+    on the float64 tensor cores (``csrc/rand_yt.cu``), launched as
+    :func:`rand_plan` says: where the carry's tiles do not fill the card
+    (few samples), the SNP axis is cut into slices, added in order
+    (bitwise repeatable)."""
     S, B = _check_rand(packed, avg, scale)
     dev, n = packed.device, 4 * B
     if m.dim() != 2:
@@ -588,13 +643,14 @@ def rand_yt(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
     _check(carry, "carry", torch.float64, (n, c), dev)
     if not packed.is_cuda:
         return rand_yt_plain(packed, avg, scale, m, carry)
-    slice_len = max(_axis_slice(S, (n // 64) * -(-c // 64), dev), 32)
-    nslice = -(-S // slice_len)
-    part = (torch.empty((nslice, n, c), dtype=torch.float64, device=dev)
-            if nslice > 1 else None)
+    plan = rand_plan(S, n, c, _sms(dev))
+    f64 = dict(dtype=torch.float64, device=dev)
+    table = torch.empty((S, 4), **f64)
+    part = torch.empty(plan.part, **f64) if plan.part else None
     _launch("rand_yt", dev, packed.data_ptr(), S, B, avg.data_ptr(),
-            scale.data_ptr(), m.data_ptr(), c, slice_len,
-            None if part is None else part.data_ptr(), carry.data_ptr())
+            scale.data_ptr(), m.data_ptr(), c, plan.width, plan.slice_len,
+            table.data_ptr(), None if part is None else part.data_ptr(),
+            carry.data_ptr())
     rand_yt.launches += 1
 
 
@@ -926,7 +982,8 @@ def pc_corr(packed: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     _check(e, "e", torch.float64, (n, K), dev)
     if not packed.is_cuda:
         return pc_corr_plain(packed, e)
-    slice_len = _axis_slice(n, -(-S // 64) * -(-K // 32), dev)
+    tiles = max(-(-S // 64) * -(-K // 32), 1)
+    slice_len = _axis_slice(n, -(-4 * _sms(dev) // tiles))
     nslice = -(-n // slice_len) if n else 1
     part = torch.empty((nslice, 3, S, K), dtype=torch.float64, device=dev)
     spart = torch.empty((nslice, 3, S), dtype=torch.float64, device=dev)
