@@ -6,6 +6,8 @@
 // against 32-deep four-stage rings, three stages, one block an SM with
 // more registers, 128-wide tiles and a product order by fragment row.
 //
+// K2b norm_gram (csrc/norm_gram.cu) uses its cp.async helpers.
+//
 // A block owns a BM x BN tile of the output (BN = 32 or 64, a template
 // parameter, so a 32-wide product does no masked work) and walks its slice
 // of the summed axis in stages of BK. Its warps each own a

@@ -82,17 +82,18 @@ _ARGTYPES = {
     "gram4": (_P, _I, _I, _P, _P),
     "gram6": (_P, _I, _I, _P, _P),
     "gram5_rows": (_P, _I, _I, _I, _I, _I, _P, _P),
-    "norm_gram_rows": (_P, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P),
+    "norm_gram_rows": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     "king_screen_count": (_P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _P, _P),
     "king_screen_write": (_P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _P, _P,
                           _L, _P),
     "snp_stats": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
-    "norm_gram": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P),
+    "norm_gram": (_P, _I, _I, _P, _P, _P, _P),
+    "norm_table": (_P, _P, _P, _I, _I, _P, _P),
     "rand_h": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "rand_yt": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     "het_count": (_P, _I, _I, _P, _P),
     "gram5_tile": (_P, _P, _I, _I, _P, _P),
-    "norm_gram_tile": (_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P),
+    "norm_gram_tile": (_P, _P, _I, _I, _P, _P, _P, _I, _P),
     "king_screen_tile_count": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _P,
                                _P),
     "king_screen_tile_write": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _P,
@@ -113,6 +114,7 @@ _ARGTYPES = {
 
 # the C entries that live in another kernel's source
 _ENTRY_SOURCE = {"gram5_rows": "gram4", "norm_gram_rows": "norm_gram",
+                 "norm_table": "norm_gram",
                  "king_screen_count": "king_screen",
                  "king_screen_write": "king_screen", "gram5_tile": "gram4",
                  "norm_gram_tile": "norm_gram",
@@ -395,6 +397,74 @@ def _norm_block(packed, avg, scale, indicator):
     return normalize(geno, valid, avg, scale), valid
 
 
+# SNPs per stage of K2b (csrc/norm_gram.cu): the decode table is padded to
+# a multiple of it with zero rows
+NORM_DEPTH = 64
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, the low 13 bits zero: what ``cvt.rna.tf32.f32`` gives."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def norm_table_plain(avg, scale, poly=None, indicator=False):
+    """Plain version of :func:`norm_table`: (tab (s_pad, 8) float32, mask
+    (s_pad,) uint8), s_pad = S rounded up to ``NORM_DEPTH``."""
+    S = avg.shape[0]
+    s_pad = -(-S // NORM_DEPTH) * NORM_DEPTH
+    dev = avg.device
+    codes = torch.arange(3, dtype=torch.float64, device=dev)
+    x = (scale[:, None].expand(S, 3) if indicator
+         else (codes[None, :] - avg[:, None]) * scale[:, None]).float()
+    hi = tf32_rna(x)
+    tab = torch.zeros((s_pad, 2, 4), dtype=torch.float32, device=dev)
+    tab[:S, 0, :3] = hi
+    tab[:S, 1, :3] = tf32_rna(x - hi)
+    m = torch.zeros(s_pad, dtype=torch.uint8, device=dev)
+    if poly is not None:
+        m[:S] = poly.to(torch.uint8) * 0x55
+    # SNP 16h + t + 4b of each 32-SNP group at 16h + 4t + b, where a lane's
+    # int8 fragment reads it
+    mask = m.view(-1, 2, 4, 4).transpose(2, 3).reshape(s_pad)
+    return tab.view(s_pad, 8), mask
+
+
+def norm_table(avg: torch.Tensor, scale: torch.Tensor,
+               poly: torch.Tensor | None = None, indicator: bool = False):
+    """The decode table of K2b for per-SNP avg, scale (S,) float64 (and poly
+    (S,) bool, for the GCTA count gram): tab (s_pad, 8) float32 holding the
+    TF32 hi parts of x for codes 0, 1, 2 and 3 of each SNP, then the lo
+    parts (x = (code - avg) * scale, or scale in indicator mode, formed in
+    float64 and rounded to float32; 0 for code 3, and rows of zeros past
+    S), and mask (s_pad,) uint8, 0x55 for a poly SNP, in the order the
+    kernel reads it. On the card one launch of ``norm_table`` in
+    ``csrc/norm_gram.cu`` fills one scratch buffer, viewed as the two."""
+    S = avg.shape[0]
+    dev = avg.device
+    _check(avg, "avg", torch.float64, (S,), dev)
+    _check(scale, "scale", torch.float64, (S,), dev)
+    if poly is not None:
+        _check(poly, "poly", torch.bool, (S,), dev)
+    if not avg.is_cuda:
+        return norm_table_plain(avg, scale, poly, indicator)
+    s_pad = -(-S // NORM_DEPTH) * NORM_DEPTH
+    buf = torch.empty(s_pad * 33, dtype=torch.uint8, device=dev)
+    _launch("norm_table", dev, avg.data_ptr(), scale.data_ptr(),
+            None if poly is None else poly.data_ptr(), S,
+            int(bool(indicator)), buf.data_ptr())
+    return buf[:32 * s_pad].view(torch.float32).view(s_pad, 8), \
+        buf[32 * s_pad:]
+
+
+def _check_aligned(*ts) -> None:
+    for t in ts:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("norm_gram: the kernel needs 16-byte aligned "
+                             "carries")
+
+
 def norm_gram_plain(packed, avg, scale, carry, poly=None, vcarry=None,
                     indicator=False):
     """Plain version of :func:`norm_gram`, in float64."""
@@ -414,7 +484,9 @@ def norm_gram(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
     mode x = scale on valid calls and 0 on missing ones (avg unused), so
     X'X = sum_s scale_s^2 v_i v_j. With vcarry (N, N) int32 (GCTA), also
     vcarry += the count gram of valid-and-polymorphic calls, in place;
-    ``poly`` is then required."""
+    ``poly`` is then required. On the card the float gram is 3xTF32 and
+    the count gram int8 on the tensor cores (``csrc/norm_gram.cu``), the
+    codes decoded through :func:`norm_table`."""
     S, B = _check_packed(packed)
     dev, n = packed.device, 4 * B
     _check(avg, "avg", torch.float64, (S,), dev)
@@ -431,13 +503,12 @@ def norm_gram(packed: torch.Tensor, avg: torch.Tensor, scale: torch.Tensor,
         return norm_gram_plain(packed, avg, scale, carry, poly, vcarry,
                                indicator)
     if S >= 1 << 24:
-        raise ValueError("norm_gram: chunks must be shorter than 2^24 SNPs "
-                         "(exact float32 counts)")
+        raise ValueError("norm_gram: chunks must be shorter than 2^24 SNPs")
+    _check_aligned(carry, vcarry)
     gcta = vcarry is not None
-    _launch("norm_gram", dev, packed.data_ptr(), S, B, avg.data_ptr(),
-            scale.data_ptr(), poly.data_ptr() if gcta else None,
-            int(bool(indicator)), carry.data_ptr(),
-            vcarry.data_ptr() if gcta else None)
+    tab, _ = norm_table(avg, scale, poly if gcta else None, indicator)
+    _launch("norm_gram", dev, packed.data_ptr(), S, B, tab.data_ptr(),
+            carry.data_ptr(), vcarry.data_ptr() if gcta else None)
     norm_gram.launches += 1
 
 
@@ -481,12 +552,13 @@ def norm_gram_rows(packed: torch.Tensor, avg: torch.Tensor,
                                     vcarry, indicator)
     if S >= 1 << 24:
         raise ValueError("norm_gram_rows: chunks must be shorter than 2^24 "
-                         "SNPs (exact float32 counts)")
+                         "SNPs")
+    _check_aligned(carry, vcarry)
     gcta = vcarry is not None
+    tab, _ = norm_table(avg, scale, poly if gcta else None, indicator)
     _launch("norm_gram_rows", dev, packed.data_ptr(), S, B, row0, R,
-            avg.data_ptr(), scale.data_ptr(),
-            poly.data_ptr() if gcta else None, int(bool(indicator)),
-            carry.data_ptr(), vcarry.data_ptr() if gcta else None)
+            tab.data_ptr(), carry.data_ptr(),
+            vcarry.data_ptr() if gcta else None)
     norm_gram_rows.launches += 1
 
 
@@ -804,8 +876,8 @@ gram5_tile.launches = 0
 
 # ------------------------------------------------ K2b tile mode norm_gram_tile
 
-# SNPs per launch of the tile mode: its float32 count sums are exact below
-# 2^24 (tests patch this to split a toy tile).
+# SNPs per launch of the tile mode, below 2^24 as the square and strip
+# modes' chunks are (tests patch this to split a toy tile).
 TILE_LAUNCH_SNPS = (1 << 24) - 1
 
 
@@ -861,14 +933,14 @@ def norm_gram_tile(slab_i: torch.Tensor, slab_j: torch.Tensor,
     if not slab_i.is_cuda:
         return norm_gram_tile_plain(slab_i, slab_j, avg, scale, carry, poly,
                                     vcarry, indicator, divide)
+    _check_aligned(carry, vcarry)
     gcta = vcarry is not None
     for s0, s1 in tile_launch_ranges(S):
+        tab, _ = norm_table(avg[s0:s1], scale[s0:s1],
+                            poly[s0:s1] if gcta else None, indicator)
         _launch("norm_gram_tile", dev, slab_i[s0:s1].data_ptr(),
-                slab_j[s0:s1].data_ptr(), s1 - s0, B, avg[s0:s1].data_ptr(),
-                scale[s0:s1].data_ptr(),
-                poly[s0:s1].data_ptr() if gcta else None,
-                int(bool(indicator)), carry.data_ptr(),
-                vcarry.data_ptr() if gcta else None,
+                slab_j[s0:s1].data_ptr(), s1 - s0, B, tab.data_ptr(),
+                carry.data_ptr(), vcarry.data_ptr() if gcta else None,
                 int(bool(divide) and s1 == S))
         norm_gram_tile.launches += 1
 
