@@ -1,28 +1,13 @@
-// K1 gram4: fused 2-bit decode + reduced-basis count grams, its strip mode
-// K1r gram5_rows, its tile mode K1t gram5_tile, its cross mode K8
-// gram5_cross and its plane mode K16 gram6.
+// K1 gram4: fused 2-bit decode + reduced-basis count grams, its cross
+// mode K8 gram5_cross and its plane mode K16 gram6. (K1r gram5_rows and
+// K1t gram5_tile, the strip and tile modes, run on the int8 warpgroup
+// products of csrc/gram5.cu.)
 //
 // K1 replaces snprelate_tpu/ops/pairwise.py:_gram4_step (decode2bit ->
 // genotype_basis -> _sym_grams4). For one packed SNP chunk, (S, N/4) bytes
 // with the first sample in the low bits and 0xFF padding (= missing), it
 // adds V'V, H'H, D'D and H'V into an int32 (4, N, N) carry, where
 // V = [g != 3], H = [g == 1] and D = [g == 2] - [g == 0].
-//
-// K1r replaces _basis_rows_step / _basis_strip_update
-// (snprelate_tpu/ops/pairwise.py:1006, :1023): for the sample rows
-// [row0, row0 + R) it adds the five row-strip grams Vr'V, Hr'H, Dr'D, Hr'V
-// and Vr'H into an int32 (5, R, N) carry, over the columns [0, n_cols).
-// A strip is not square, so both het cross-grams are computed. The KING
-// screen passes n_cols = row0 + rows rounded up to 64: its triangle test
-// never reads a column at or past the row, so half the work is skipped.
-//
-// K1t replaces _basis_tile_scan_c (snprelate_tpu/ops/tiles.py:732): the
-// five grams Vi'Vj, Hi'Hj, Di'Dj, Hi'Vj and Vi'Hj of one (g, g) super tile,
-// the rows from one packed sample-group slab and the columns from another,
-// each (S, g/4) bytes over every SNP of the selection, in one launch. It is
-// K1r's tile code with two packed operands where K1 and K1r pass one
-// pointer twice; the int32 sums are exact below 2^31 SNPs, which the
-// engines guard (guard_count_snps).
 //
 // K8 gram5_cross replaces _cross_gram_step (snprelate_tpu/ops/pairwise.py:545),
 // the serving path's (query x cohort) update: for one packed cohort chunk
@@ -62,9 +47,9 @@
 // exists in memory, and all grams come from the same fragments through
 // mma.sync.m16n8k32 (s8 x s8 -> s32). The epilogue adds the tile into the
 // carry; each tile has one owner, so no atomics. K1 computes the full
-// square because H'V is not symmetric; K1r is the same tile code on a
-// rectangle of tiles. Upper-triangle tiles for the three symmetric grams,
-// wgmma and TMA are later work.
+// square because H'V is not symmetric. Moving K1 and K16 onto csrc/gram5.cu's
+// body (wgmma, operands decoded once a stage into shared memory, cp.async
+// ring) is later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -127,8 +112,8 @@ __device__ __forceinline__ uint32_t lds32(const uint8_t *p) {
 
 // The grams of one 64 x 64 tile (rows from sample i0 of pa, columns from
 // sample j0 of pb, two (S, B) packed chunks that may be the same) over the
-// whole chunk, into acc: V'V, H'H, D'D, H'V and, with NG == 5, V'H; with
-// NG == 6 the plane grams I0'I0, I0'I1, I0'I2, I1'I1, I1'I2, I2'I2 (av, ah
+// whole chunk, into acc: V'V, H'H, D'D and H'V; with NG == 6 the plane
+// grams I0'I0, I0'I1, I0'I2, I1'I1, I1'I2, I2'I2 (av, ah
 // and ad then hold the planes 0, 1 and 2). Called by all THREADS threads
 // of the block.
 template <int NG>
@@ -210,7 +195,6 @@ __device__ __forceinline__ void tile_grams(const uint8_t *__restrict__ pa,
             mma_s8(acc[1][m][n], ah[m], bh[n]);  // H'H
             mma_s8(acc[2][m][n], ad[m], bd[n]);  // D'D
             mma_s8(acc[3][m][n], ah[m], bv[n]);  // H'V
-            if constexpr (NG == 5) mma_s8(acc[4][m][n], av[m], bh[n]);  // V'H
           }
         }
     }
@@ -271,32 +255,6 @@ gram6_kernel(const uint8_t *__restrict__ packed, int S, int B,
   int acc[6][2][2][4];
   tile_grams<6>(packed, packed, S, B, i0, j0, sm, acc);
   add_tile<6>(carry, N * N, N, i0, j0, acc);
-}
-
-// The strip: block (x, y) owns rows row0 + 64y and columns 64x.
-__global__ void __launch_bounds__(THREADS)
-gram5_rows_kernel(const uint8_t *__restrict__ packed, int S, int B, int row0,
-                  int rows, int *__restrict__ carry) {
-  __shared__ __align__(16) uint8_t sm[2][TILE][LDS];
-  const long long N = 4LL * B;
-  const int r0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
-  int acc[5][2][2][4];
-  tile_grams<5>(packed, packed, S, B, row0 + r0, j0, sm, acc);
-  add_tile<5>(carry, (long long)rows * N, N, r0, j0, acc);
-}
-
-// The super tile: block (x, y) owns rows 64y of slab_i and columns 64x of
-// slab_j.
-__global__ void __launch_bounds__(THREADS)
-gram5_tile_kernel(const uint8_t *__restrict__ slab_i,
-                  const uint8_t *__restrict__ slab_j, int S, int B,
-                  int *__restrict__ carry) {
-  __shared__ __align__(16) uint8_t sm[2][TILE][LDS];
-  const long long G = 4LL * B;
-  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
-  int acc[5][2][2][4];
-  tile_grams<5>(slab_i, slab_j, S, B, i0, j0, sm, acc);
-  add_tile<5>(carry, G * G, G, i0, j0, acc);
 }
 
 // K8: block (x, y) owns cohort samples 64x.. and queries QT y.., QT = 8 NF.
@@ -432,37 +390,6 @@ extern "C" int gram6_launch(const void *packed, int S, int B, void *carry,
     gram6_kernel<<<dim3(tiles, tiles), THREADS, 0,
                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint8_t *>(packed), S, B, static_cast<int *>(carry));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// packed: (S, B) uint8, B % 16 == 0; carry: (5, rows, 4B) int32, updated in
-// place over its columns [0, n_cols); row0, rows and n_cols multiples of
-// 64 with row0 + rows <= 4B and n_cols <= 4B. Launches on `stream`;
-// returns cudaGetLastError().
-extern "C" int gram5_rows_launch(const void *packed, int S, int B, int row0,
-                                 int rows, int n_cols, void *carry,
-                                 void *stream) {
-  if (rows > 0 && n_cols > 0)
-    gram5_rows_kernel<<<dim3(n_cols / TILE, rows / TILE), THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t *>(packed), S, B, row0, rows,
-        static_cast<int *>(carry));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// slab_i, slab_j: (S, B) uint8 each, B % 16 == 0 (two sample groups of
-// g = 4B samples over the same S SNPs; may be the same pointer); carry:
-// (5, 4B, 4B) int32, updated in place. Launches on `stream`; returns
-// cudaGetLastError().
-extern "C" int gram5_tile_launch(const void *slab_i, const void *slab_j,
-                                 int S, int B, void *carry, void *stream) {
-  const int tiles = 4 * B / TILE;
-  if (tiles > 0 && S > 0)
-    gram5_tile_kernel<<<dim3(tiles, tiles), THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t *>(slab_i),
-        static_cast<const uint8_t *>(slab_j), S, B,
-        static_cast<int *>(carry));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -19,17 +19,18 @@ kernels its path went through.
 - ``rand_yt``   (K3b) replaces pca_randomized.py:_g_step and _t_step, the
   slab route's g_accum and t_accum and the rank PCA's W (carry += Y' M)
 - ``het_count`` (K5) replaces the per-sample het count of _eigmix_step
-- ``gram5_rows`` (K1r, ``csrc/gram4.cu``) replaces _basis_rows_step /
-  _basis_strip_update: the five row-strip count grams
+- ``gram5_rows`` (K1r, ``csrc/gram5.cu``) replaces _basis_rows_step /
+  _basis_strip_update: the five row-strip count grams, on int8 wgmma
+  (launch plan :func:`gram5_plan`)
 - ``norm_gram_rows`` (K2b strip mode, ``csrc/norm_gram.cu``) replaces
   _gcta_rows_step and _pca_rows_step, and the float strips of
   _king_homo_rows_step and _eigmix_rows_step
 - ``king_screen`` (K6) replaces king.py's _strip_counters, strip_hits,
   strip_mask and gather_hits: the KING-robust screen of one strip, its
   hits compacted in row-major order
-- ``gram5_tile`` (K1t, ``csrc/gram4.cu``) replaces ops/tiles.py's
+- ``gram5_tile`` (K1t, ``csrc/gram5.cu``) replaces ops/tiles.py's
   _basis_tile_scan_c: the five count grams of one super tile, its rows and
-  columns from two sample-group slabs
+  columns from two sample-group slabs, on K1r's body
 - ``norm_gram_tile`` (K2b tile mode, ``csrc/norm_gram.cu``) replaces
   _gcta_tile_scan_c (the GCTA division on the card) and the float grams of
   _eigmix_tile_scan_c and _king_homo_tile_scan_c
@@ -113,10 +114,10 @@ _ARGTYPES = {
 
 
 # the C entries that live in another kernel's source
-_ENTRY_SOURCE = {"gram5_rows": "gram4", "norm_gram_rows": "norm_gram",
+_ENTRY_SOURCE = {"gram5_rows": "gram5", "norm_gram_rows": "norm_gram",
                  "norm_table": "norm_gram",
                  "king_screen_count": "king_screen",
-                 "king_screen_write": "king_screen", "gram5_tile": "gram4",
+                 "king_screen_write": "king_screen", "gram5_tile": "gram5",
                  "norm_gram_tile": "norm_gram",
                  "king_screen_tile": "king_screen",
                  "king_screen_tile_count": "king_screen",
@@ -269,7 +270,9 @@ def gram5_rows(packed: torch.Tensor, carry: torch.Tensor, row0: int,
     """carry (5, R, N) int32 += Vr'V, Hr'H, Dr'D, Hr'V, Vr'H of one packed
     (S, N/4) chunk, Vr the basis of the sample rows [row0, row0 + R),
     updated in place over the columns [0, n_cols) (default N; the others
-    are left as they are). row0, R and n_cols are multiples of 64."""
+    are left as they are). row0, R and n_cols are multiples of 64. On the
+    card: int8 wgmma on V, H and D decoded once a stage into shared
+    memory, launched as :func:`gram5_plan` says."""
     S, B, R = _check_strip(packed, carry, 5, torch.int32, row0)
     n_cols = 4 * B if n_cols is None else int(n_cols)
     if n_cols < 0 or n_cols > 4 * B or n_cols % 64:
@@ -284,6 +287,43 @@ def gram5_rows(packed: torch.Tensor, carry: torch.Tensor, row0: int,
 
 gram5_rows.launches = 0
 
+
+# ---------------------------------------------- K1r / K1t launch plan
+
+GRAM5_ROWS = 128   # output rows per block: two warpgroups of 64
+GRAM5_COLS = 64    # output columns per block
+GRAM5_DEPTH = 256  # SNPs per stage
+GRAM5_RING = 3     # packed stages in the cp.async ring
+SMEM_LIMIT = 232_448  # shared memory one block may use (227 KB)
+
+
+class Gram5Plan(NamedTuple):
+    """The launch of K1r gram5_rows or K1t gram5_tile (see
+    :func:`gram5_plan`)."""
+    row_tiles: int  # block rows (the grid's y), 128 carry rows each
+    col_tiles: int  # block columns (the grid's x), 64 carry columns each
+    ragged: bool    # the last block row's second warpgroup is idle
+    smem: int       # dynamic shared memory a block, bytes
+
+
+def gram5_plan(rows: int, n_cols: int) -> Gram5Plan:
+    """The grid and shared memory of one K1r / K1t launch over a carry of
+    ``rows`` rows and its columns [0, n_cols) (multiples of 64), as
+    ``csrc/gram5.cu`` launches it: blocks of 128 x 64 output entries, the
+    rows split between two warpgroups of 64, the second of the last block
+    row idle when rows is an odd multiple of 64. Shared memory: 1,024
+    bytes of alignment slack, two decoded stages of the columns' V, H and
+    D planes (one byte a sample, SNP and plane; the rows' planes live in
+    registers) and a ring of packed stages (the rows' packed bytes with 16
+    pad bytes a 4 SNPs, the columns' with 16 a 8)."""
+    if rows % 64 or n_cols % GRAM5_COLS or rows < 0 or n_cols < 0:
+        raise ValueError(f"rows {rows} and n_cols {n_cols}: multiples of 64")
+    d = GRAM5_DEPTH
+    ring = (d * GRAM5_ROWS // 4 + d // 4 * 16) + (d * GRAM5_COLS // 4
+                                                  + d // 8 * 16)
+    return Gram5Plan(-(-rows // GRAM5_ROWS), n_cols // GRAM5_COLS,
+                     rows % GRAM5_ROWS != 0,
+                     1024 + 2 * 3 * GRAM5_COLS * d + GRAM5_RING * ring)
 
 # ------------------------------------------------------------ K2a snp_stats
 
@@ -861,7 +901,8 @@ def gram5_tile(slab_i: torch.Tensor, slab_j: torch.Tensor,
     super tile, updated in place: the rows from the packed slab_i, the
     columns from slab_j, both (S, g/4) over the same S SNPs (the same
     tensor on a diagonal tile). One launch covers all S SNPs; the int32
-    sums are exact below 2^31 SNPs (the engines' guard_count_snps)."""
+    sums are exact below 2^31 SNPs (the engines' guard_count_snps). On
+    the card K1r's kernel runs it, launched as :func:`gram5_plan` says."""
     S, B = _check_slabs(slab_i, slab_j)
     _check(carry, "carry", torch.int32, (5, 4 * B, 4 * B), slab_i.device)
     if not slab_i.is_cuda:
