@@ -1,38 +1,33 @@
-// K1 gram4: fused 2-bit decode + reduced-basis count grams, its cross
-// mode K8 gram5_cross and its plane mode K16 gram6. (K1r gram5_rows and
-// K1t gram5_tile, the strip and tile modes, run on the int8 warpgroup
-// products of csrc/gram5.cu.)
-//
-// K1 replaces snprelate_tpu/ops/pairwise.py:_gram4_step (decode2bit ->
-// genotype_basis -> _sym_grams4). For one packed SNP chunk, (S, N/4) bytes
-// with the first sample in the low bits and 0xFF padding (= missing), it
-// adds V'V, H'H, D'D and H'V into an int32 (4, N, N) carry, where
-// V = [g != 3], H = [g == 1] and D = [g == 2] - [g == 0].
+// K8 gram5_cross and K16 gram6: the serving path's (query x cohort) count
+// grams and the six one-hot plane grams, on int8 mma.sync. (K1 gram4 and
+// its strip and tile modes K1r gram5_rows and K1t gram5_tile run on the
+// int8 warpgroup products of csrc/gram5.cu.)
 //
 // K8 gram5_cross replaces _cross_gram_step (snprelate_tpu/ops/pairwise.py:545),
-// the serving path's (query x cohort) update: for one packed cohort chunk
-// and a query given as one code byte per genotype, (q, Sq) with 3 = missing
-// (any code above 2 counts as missing, and so do the query columns from Sq
-// to the chunk's S), it adds Qv'V, Qh'H, Qd'D, Qh'V and Qv'H into an int32
-// (5, q, N) carry. The query is small (1 to 64 rows in serving), so the
-// cohort samples take the mma's M side and the queries its n8 side: one n8
-// fragment holds 8 queries, and no 64 x 64 tile is wasted on 8 live rows.
-// The cohort stage is K1's; the query stage copies code bytes as they are
-// (they are already sample-major with the SNP axis contiguous) and the same
-// register basis serves both. The epilogue adds each fragment transposed
-// into the (5, q, N) carry. At q = 8 it is bound by the packed chunk's
-// bytes, at q = 64 by int8 operations. A variant that formed the query's
-// V, H and D once per stage in shared memory, with one 8-warp block over
-// 64 queries, measured slower on the card at q = 8 and 64 (160 registers
-// a thread, so one such block per SM).
+// the serving path's (query x cohort) update: for one packed cohort chunk,
+// (S, N/4) bytes with the first sample in the low bits and 0xFF padding
+// (= missing), and a query given as one code byte per genotype, (q, Sq)
+// with 3 = missing (any code above 2 counts as missing, and so do the query
+// columns from Sq to the chunk's S), it adds Qv'V, Qh'H, Qd'D, Qh'V and
+// Qv'H into an int32 (5, q, N) carry, where V = [g != 3], H = [g == 1] and
+// D = [g == 2] - [g == 0]. The query is small (1 to 64 rows in serving), so
+// the cohort samples take the mma's M side and the queries its n8 side:
+// one n8 fragment holds 8 queries, and no 64 x 64 tile is wasted on 8 live
+// rows. The cohort stage is K16's; the query stage copies code bytes as
+// they are (they are already sample-major with the SNP axis contiguous)
+// and the same register basis serves both. The epilogue adds each fragment
+// transposed into the (5, q, N) carry. At q = 8 it is bound by the packed
+// chunk's bytes, at q = 64 by int8 operations. A variant that formed the
+// query's V, H and D once per stage in shared memory, with one 8-warp
+// block over 64 queries, measured slower on the card at q = 8 and 64 (160
+// registers a thread, so one such block per SM).
 //
 // K16 gram6 replaces _gram6_step (snprelate_tpu/ops/pairwise.py:303,
 // decode2bit -> genotype_planes -> _sym_grams): the six one-hot plane
 // cross-grams I_a'I_b, (a, b) in (0,0), (0,1), (0,2), (1,1), (1,2), (2,2),
 // I_a = [g == a] (missing, code 3, has all-zero planes), of one packed
-// chunk, added into an int32 (6, N, N) carry. It is K1's tile code with the
-// planes formed in registers in place of the basis, over the full square
-// (the cross-grams with a != b are not symmetric).
+// chunk, added into an int32 (6, N, N) carry, over the full square (the
+// cross-grams with a != b are not symmetric).
 //
 // What bounds them on the card: int8 tensor-core operations, 2*S per
 // output entry and gram, against S*N/4 bytes of input and the int32 carry
@@ -42,14 +37,13 @@
 // streams the chunk through shared memory in 128-SNP stages. A stage's
 // packed bytes are transposed into one code byte per genotype, sample-major
 // with the SNP axis contiguous, so every mma.sync fragment register is one
-// conflict-free 32-bit shared load. V, H and D are formed from the code
-// bytes in registers with a few bitwise operations, so the basis never
-// exists in memory, and all grams come from the same fragments through
-// mma.sync.m16n8k32 (s8 x s8 -> s32). The epilogue adds the tile into the
-// carry; each tile has one owner, so no atomics. K1 computes the full
-// square because H'V is not symmetric. Moving K1 and K16 onto csrc/gram5.cu's
-// body (wgmma, operands decoded once a stage into shared memory, cp.async
-// ring) is later work.
+// conflict-free 32-bit shared load. The planes (K16) or the basis (K8) are
+// formed from the code bytes in registers with a few bitwise operations,
+// so they never exist in memory, and all grams come from the same
+// fragments through mma.sync.m16n8k32 (s8 x s8 -> s32). The epilogue adds
+// the tile into the carry; each tile has one owner, so no atomics. Moving
+// K16 and K8 onto csrc/gram5.cu's body (wgmma, operands decoded once a
+// stage into shared memory, cp.async ring), as K1 did, is later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -95,28 +89,17 @@ __device__ __forceinline__ void planes(uint32_t w, uint32_t &p0,
   p2 = hi & ~lo;          // code == 2
 }
 
-// The three operand bytes of four codes: the planes for the six plane
-// grams (NG == 6), else the basis V, H, D.
-template <int NG>
-__device__ __forceinline__ void operand(uint32_t w, uint32_t &x, uint32_t &y,
-                                        uint32_t &z) {
-  if constexpr (NG == 6)
-    planes(w, x, y, z);
-  else
-    basis(w, x, y, z);
-}
-
 __device__ __forceinline__ uint32_t lds32(const uint8_t *p) {
   return *reinterpret_cast<const uint32_t *>(p);
 }
 
-// The grams of one 64 x 64 tile (rows from sample i0 of pa, columns from
-// sample j0 of pb, two (S, B) packed chunks that may be the same) over the
-// whole chunk, into acc: V'V, H'H, D'D and H'V; with NG == 6 the plane
-// grams I0'I0, I0'I1, I0'I2, I1'I1, I1'I2, I2'I2 (av, ah
-// and ad then hold the planes 0, 1 and 2). Called by all THREADS threads
-// of the block.
-template <int NG>
+constexpr int NG = 6;  // K16's grams
+
+// The plane grams I0'I0, I0'I1, I0'I2, I1'I1, I1'I2, I2'I2 of one 64 x 64
+// tile (rows from sample i0 of pa, columns from sample j0 of pb, two
+// (S, B) packed chunks that may be the same) over the whole chunk, into
+// acc (av, ah and ad hold the planes 0, 1 and 2). Called by all THREADS
+// threads of the block.
 __device__ __forceinline__ void tile_grams(const uint8_t *__restrict__ pa,
                                            const uint8_t *__restrict__ pb,
                                            int S, int B, int i0, int j0,
@@ -168,34 +151,27 @@ __device__ __forceinline__ void tile_grams(const uint8_t *__restrict__ pa,
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
         const uint8_t *p = &sm[0][wm * 32 + m * 16 + g][kk + 4 * t];
-        operand<NG>(lds32(p), av[m][0], ah[m][0], ad[m][0]);
-        operand<NG>(lds32(p + 8 * LDS), av[m][1], ah[m][1], ad[m][1]);
-        operand<NG>(lds32(p + 16), av[m][2], ah[m][2], ad[m][2]);
-        operand<NG>(lds32(p + 8 * LDS + 16), av[m][3], ah[m][3], ad[m][3]);
+        planes(lds32(p), av[m][0], ah[m][0], ad[m][0]);
+        planes(lds32(p + 8 * LDS), av[m][1], ah[m][1], ad[m][1]);
+        planes(lds32(p + 16), av[m][2], ah[m][2], ad[m][2]);
+        planes(lds32(p + 8 * LDS + 16), av[m][3], ah[m][3], ad[m][3]);
       }
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         const uint8_t *p = &sm[1][wn * 16 + n * 8 + g][kk + 4 * t];
-        operand<NG>(lds32(p), bv[n][0], bh[n][0], bd[n][0]);
-        operand<NG>(lds32(p + 16), bv[n][1], bh[n][1], bd[n][1]);
+        planes(lds32(p), bv[n][0], bh[n][0], bd[n][0]);
+        planes(lds32(p + 16), bv[n][1], bh[n][1], bd[n][1]);
       }
 #pragma unroll
       for (int m = 0; m < 2; ++m)
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
-          if constexpr (NG == 6) {
-            mma_s8(acc[0][m][n], av[m], bv[n]);  // I0'I0
-            mma_s8(acc[1][m][n], av[m], bh[n]);  // I0'I1
-            mma_s8(acc[2][m][n], av[m], bd[n]);  // I0'I2
-            mma_s8(acc[3][m][n], ah[m], bh[n]);  // I1'I1
-            mma_s8(acc[4][m][n], ah[m], bd[n]);  // I1'I2
-            mma_s8(acc[5][m][n], ad[m], bd[n]);  // I2'I2
-          } else {
-            mma_s8(acc[0][m][n], av[m], bv[n]);  // V'V
-            mma_s8(acc[1][m][n], ah[m], bh[n]);  // H'H
-            mma_s8(acc[2][m][n], ad[m], bd[n]);  // D'D
-            mma_s8(acc[3][m][n], ah[m], bv[n]);  // H'V
-          }
+          mma_s8(acc[0][m][n], av[m], bv[n]);  // I0'I0
+          mma_s8(acc[1][m][n], av[m], bh[n]);  // I0'I1
+          mma_s8(acc[2][m][n], av[m], bd[n]);  // I0'I2
+          mma_s8(acc[3][m][n], ah[m], bh[n]);  // I1'I1
+          mma_s8(acc[4][m][n], ah[m], bd[n]);  // I1'I2
+          mma_s8(acc[5][m][n], ad[m], bd[n]);  // I2'I2
         }
     }
   }
@@ -205,7 +181,6 @@ __device__ __forceinline__ void tile_grams(const uint8_t *__restrict__ pa,
 // row r0 of a carry whose grams are `plane` entries apart with row stride
 // ld. Fragment f sits at row g (+8 for f >= 2) and column 2t + (f & 1) of
 // its 16 x 8 mma tile.
-template <int NG>
 __device__ __forceinline__ void add_tile(int *__restrict__ carry,
                                          long long plane, long long ld,
                                          long long r0, long long c0,
@@ -234,27 +209,16 @@ __device__ __forceinline__ void add_tile(int *__restrict__ carry,
       }
 }
 
-__global__ void __launch_bounds__(THREADS)
-gram4_kernel(const uint8_t *__restrict__ packed, int S, int B,
-             int *__restrict__ carry) {
-  __shared__ __align__(16) uint8_t sm[2][TILE][LDS];  // [row|col side][sample][snp]
-  const long long N = 4LL * B;
-  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
-  int acc[4][2][2][4];  // [gram][m tile][n tile][fragment]
-  tile_grams<4>(packed, packed, S, B, i0, j0, sm, acc);
-  add_tile<4>(carry, N * N, N, i0, j0, acc);
-}
-
 // K16: block (x, y) owns rows 64y and columns 64x of all six plane grams.
 __global__ void __launch_bounds__(THREADS)
 gram6_kernel(const uint8_t *__restrict__ packed, int S, int B,
              int *__restrict__ carry) {
-  __shared__ __align__(16) uint8_t sm[2][TILE][LDS];
+  __shared__ __align__(16) uint8_t sm[2][TILE][LDS];  // [row|col side][sample][snp]
   const long long N = 4LL * B;
   const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
-  int acc[6][2][2][4];
-  tile_grams<6>(packed, packed, S, B, i0, j0, sm, acc);
-  add_tile<6>(carry, N * N, N, i0, j0, acc);
+  int acc[NG][2][2][4];  // [gram][m tile][n tile][fragment]
+  tile_grams(packed, packed, S, B, i0, j0, sm, acc);
+  add_tile(carry, N * N, N, i0, j0, acc);
 }
 
 // K8: block (x, y) owns cohort samples 64x.. and queries QT y.., QT = 8 NF.
@@ -272,7 +236,7 @@ gram5_cross_kernel(const uint8_t *__restrict__ packed, int S, int B,
   const int g = lane >> 2, t = lane & 3;
   const int i0 = blockIdx.x * TILE, q0 = blockIdx.y * QT;
 
-  // cohort fill, as K1's: thread -> (SNP quad lane, 16-sample word warp)
+  // cohort fill, as K16's: thread -> (SNP quad lane, 16-sample word warp)
   const uint8_t *src = packed + (i0 >> 2) + 4 * warp;
   uint8_t *dst = &sc[16 * warp][4 * lane];
 
@@ -368,17 +332,6 @@ gram5_cross_kernel(const uint8_t *__restrict__ packed, int S, int B,
 }
 
 }  // namespace
-
-// packed: (S, B) uint8, B % 16 == 0; carry: (4, 4B, 4B) int32, updated in
-// place. Launches on `stream`; returns cudaGetLastError().
-extern "C" int gram4_launch(const void *packed, int S, int B, void *carry,
-                            void *stream) {
-  const int tiles = 4 * B / TILE;
-  gram4_kernel<<<dim3(tiles, tiles), THREADS, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t *>(packed), S, B, static_cast<int *>(carry));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // packed: (S, B) uint8, B % 16 == 0; carry: (6, 4B, 4B) int32, the plane
 // grams in _SYM_PAIRS order, updated in place. Launches on `stream`;

@@ -1,5 +1,12 @@
-// K1r gram5_rows and K1t gram5_tile: the five count grams of the KING
-// screen's strips and super tiles, on Hopper's int8 warpgroup products.
+// K1 gram4, K1r gram5_rows and K1t gram5_tile: the count grams of the
+// full square, of the KING screen's strips and of its super tiles, on
+// Hopper's int8 warpgroup products.
+//
+// K1 replaces _gram4_step (snprelate_tpu/ops/pairwise.py:314, decode2bit
+// -> genotype_basis -> _sym_grams4, :166): V'V, H'H, D'D and H'V of one
+// packed chunk added into an int32 (4, N, N) carry over the full square
+// (the main path's pair_counts, ibd_king, ibd_mom, beta, diss, KING-homo,
+// ibd_mle's MoM start and the mesh's sharded gram).
 //
 // K1r replaces _basis_rows_step / _basis_strip_update
 // (snprelate_tpu/ops/pairwise.py:1024, :1006): for the sample rows
@@ -56,8 +63,32 @@
 // end; each output tile has one owner, so no atomics, and a second launch
 // gives the same bits. The launch plan and the shared-memory budget
 // (140,800 bytes, one block of 246 registers a thread an SM) are mirrored
-// by ops/kernels.py:gram5_plan, the decode, the ring and the swizzle by
-// the CPU tests of tests/test_torch_gram5_plan.py.
+// by ops/kernels.py:gram5_plan (K1: gram4_plan), the decode, the ring and
+// the swizzle by the CPU tests of tests/test_torch_gram5_plan.py, K1's
+// grid walk, parts and stores by tests/test_torch_gram4_plan.py.
+//
+// K1's triangle mode. V'V, H'H and D'D are symmetric and H'V(j, i) =
+// V'H(i, j), so K1 runs only the blocks of the upper block triangle (64 x
+// >= 128 y: 420 of 800 at N = 2,560), each with K1r's five grams, and
+// writes every carry entry from exactly one of them: on or above the
+// diagonal V'V, H'H, D'D and H'V where computed, below it V'V, H'H, D'D
+// and V'H of the mirrored entry, transposed through the (then free)
+// decoded-column buffers so that a warp's adds cover whole carry rows. A
+// diagonal 64 x 64 tile writes its upper half directly and its lower half
+// from its own mirror; the second warpgroup of a block on the diagonal
+// (64 x = 128 y: its rows lie below it) loads and writes nothing. The
+// blocks of the last wave are cut into SNP parts (ops/kernels.py
+// gram4_plan: at N = 2,560 396 whole blocks, then 24 in 5 parts of 1,792
+// SNPs), so that wave ends sooner; the parts meet in the carry, so K1 adds
+// with atomics (red.global.add.s32: int32 sums are exact in any order, so
+// a second launch gives the same bits). Its carry tiles are prefetched
+// into L2 before the loop: prefetched inside it, as K1r / K1t do, they
+// cost ptxas the registers to keep the products in flight, and it
+// serialized them. What bounds it beyond K1r's body: the epilogue's
+// atomics, 4 N^2 adds and the parts' extra ones, and at N = 1,024 one
+// wave of 72 blocks, which parts do not shorten (a part's prologue and
+// epilogue cost about as much as the stages it saves: chip_smoke.py's
+// `[time] gram4 parts` line).
 //
 // Why this design (the rates: PERF.md, from `python3 chip_smoke.py
 // --mma-probe`): wgmma s8 runs near the int8 peak from shared memory and
@@ -73,7 +104,7 @@
 // slower: ptxas held every thread to the launch's share of registers
 // despite setmaxnreg (128 at 512 threads, 168 at 384), spilled the 160
 // accumulators and serialized the products. Later work: that split with
-// fewer accumulators a consumer, K1 gram4, K16 gram6 and K8 gram5_cross
+// fewer accumulators a consumer, K16 gram6 and K8 gram5_cross
 // (csrc/gram4.cu) on this body, K6 / K6t (the KING screen's tests) in the
 // epilogue, a persistent grid.
 
@@ -203,49 +234,159 @@ __device__ __forceinline__ void decode_rows(const uint8_t *rows, int kk,
   }
 }
 
+// carry (the fragment's row 0 at p, row stride ld) += the 64 x 64 half
+// HALF (columns 64 HALF ..) of an m64nN accumulator: all loads before the
+// adds and stores.
+template <int HALF, int R>
+__device__ __forceinline__ void add_half(int *p, long long ld,
+                                         const int (&acc)[R]) {
+  int2 v[16];
+#pragma unroll
+  for (int f = 0; f < 16; ++f)  // f = 2 j + h: column 8 j, row 8 h
+    v[f] = *reinterpret_cast<const int2 *>(p + (f & 1) * 8 * ld +
+                                           8 * (f >> 1));
+#pragma unroll
+  for (int f = 0; f < 16; ++f) {
+    const int i = 4 * (8 * HALF + (f >> 1)) + 2 * (f & 1);
+    v[f].x += acc[i];
+    v[f].y += acc[i + 1];
+    *reinterpret_cast<int2 *>(p + (f & 1) * 8 * ld + 8 * (f >> 1)) = v[f];
+  }
+}
+
 // carry[lo gram] and carry[hi gram] += an m64nN accumulator's fragments
 // (N = 64: lo only; N = 128: columns 64.. to hi), row r of the fragment at
-// base + r ld: all of a gram's loads before its adds and stores.
+// base + r ld.
 template <int N>
 __device__ __forceinline__ void add_fragments(int *base, long long ld,
                                               long long plane, int lo, int hi,
                                               const int (&acc)[N / 2]) {
-#pragma unroll
-  for (int half = 0; half < N / 64; ++half) {
-    int *p = base + (half ? hi : lo) * plane;
-    int2 v[16];
-#pragma unroll
-    for (int f = 0; f < 16; ++f)  // f = 2 j + h: column 8 j, row 8 h
-      v[f] = *reinterpret_cast<const int2 *>(p + (f & 1) * 8 * ld +
-                                             8 * (f >> 1));
-#pragma unroll
-    for (int f = 0; f < 16; ++f) {
-      const int i = 4 * (8 * half + (f >> 1)) + 2 * (f & 1);
-      v[f].x += acc[i];
-      v[f].y += acc[i + 1];
-      *reinterpret_cast<int2 *>(p + (f & 1) * 8 * ld + 8 * (f >> 1)) = v[f];
-    }
-  }
+  add_half<0>(base + lo * plane, ld, acc);
+  if constexpr (N == 128) add_half<1>(base + hi * plane, ld, acc);
 }
 
-// Block (x, y): carry rows r0 = 128 y .. (packed sample rows row_base + r0
-// ..) of pa, columns c0 = 64 x .. of pb; carry gram k at k plane, row
-// stride ld. rows: the carry's rows (a multiple of 64).
+// K1's triangle mode, which adds with atomics (a split block's parts meet
+// in the carry; int32 sums are exact in any order). carry (fragment row 0
+// at p) += the 64 x 64 half HALF of an accumulator, the lane's rows rl,
+// rl + 8 and columns 8 j + cl, + 1 of the tile; on a diagonal tile (diag)
+// only the entries on or above the diagonal.
+template <int HALF, int R>
+__device__ __forceinline__ void add_upper(int *p, long long ld, bool diag,
+                                          int rl, int cl,
+                                          const int (&acc)[R]) {
+#pragma unroll
+  for (int f = 0; f < 16; ++f)  // f = 2 j + h: column 8 j, row 8 h
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = f >> 1, h = f & 1;
+      if (!diag || rl + 8 * h <= 8 * j + cl + e)
+        atomicAdd(p + h * 8 * ld + 8 * j + e,
+                  acc[4 * (8 * HALF + j) + 2 * h + e]);
+    }
+}
+
+constexpr int LDT = 68;  // a transposed tile's row (int32): the fragment
+                         // stores of a warp on 32 distinct banks
+
+// carry (row 0, column 0 at q: rows c0.., columns this warpgroup's rows)
+// += the transpose of the warpgroup's 64 x 64 half HALF, through its
+// region T (64 x LDT int32) of the free decoded-column buffers, a warp's
+// adds on whole carry rows; on a diagonal tile only the entries strictly
+// above it (their mirrors lie below). Called by every thread of the block.
+template <int HALF, int R>
+__device__ __forceinline__ void add_mirror(int *T, int *q, long long ld,
+                                           bool own, bool diag, int rl,
+                                           int cl, int w4, int lane,
+                                           const int (&acc)[R]) {
+  if (own)
+#pragma unroll
+    for (int f = 0; f < 16; ++f)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = f >> 1, h = f & 1;
+        T[(8 * j + cl + e) * LDT + rl + 8 * h] =
+            acc[4 * (8 * HALF + j) + 2 * h + e];
+      }
+  __syncthreads();
+  if (own)  // warp w4: carry rows c = 16 w4 .., columns 2 lane, + 1
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const int c = 16 * w4 + r;
+      const int2 v = *reinterpret_cast<const int2 *>(T + c * LDT + 2 * lane);
+      int *a = q + c * ld + 2 * lane;
+      if (!diag || 2 * lane < c) atomicAdd(a, v.x);
+      if (!diag || 2 * lane + 1 < c) atomicAdd(a + 1, v.y);
+    }
+  __syncthreads();
+}
+
+// K1's four grams of this warpgroup's tile (rows i0 = r0 + 64 wgi, columns
+// c0): V'V, H'H, D'D and H'V into (i, j) for i <= j, and V'V, H'H, D'D
+// and V'H(i, j) = H'V(j, i) into (j, i) for i < j; each accumulator's
+// stores together, so that it dies before the next one's.
+__device__ __forceinline__ void add_triangle(
+    int *carry, long long plane, long long ld, int i0, int c0, bool own,
+    bool diag, int rl, int cl, int w4, int lane, int *T,
+    const int (&acc_v)[64], const int (&acc_h)[64], const int (&acc_d)[32]) {
+  int *q = carry + static_cast<long long>(c0) * ld + i0;
+  int *p = carry + static_cast<long long>(i0 + rl) * ld + c0 + cl;
+  add_mirror<0>(T, q, ld, own, diag, rl, cl, w4, lane, acc_v);  // V'V
+  if (own) add_upper<0>(p, ld, diag, rl, cl, acc_v);
+  add_mirror<1>(T, q + 3 * plane, ld, own, diag, rl, cl, w4, lane,
+                acc_v);  // V'H, the mirror of H'V
+  add_mirror<1>(T, q + plane, ld, own, diag, rl, cl, w4, lane, acc_h);
+  if (own) {
+    add_upper<1>(p + plane, ld, diag, rl, cl, acc_h);      // H'H
+    add_upper<0>(p + 3 * plane, ld, diag, rl, cl, acc_h);  // H'V
+  }
+  add_mirror<0>(T, q + 2 * plane, ld, own, diag, rl, cl, w4, lane,
+                acc_d);  // D'D
+  if (own) add_upper<0>(p + 2 * plane, ld, diag, rl, cl, acc_d);
+}
+
+// Block (x, y): carry rows r0 = 128 y .. (packed sample rows row_base +
+// r0 ..) of pa, columns c0 = 64 x .. of pb; carry gram k at k plane, row
+// stride ld. rows: the carry's rows (a multiple of 64). TRI (K1): x walks
+// the upper block triangle (64 x >= 128 y) row by row, rows is N, and the
+// four grams are written as add_triangle says; the blocks past `whole`
+// (those of the last wave) are cut into `parts` SNP parts of part_len,
+// part z of block whole + t the grid's block whole + z tail + t.
+template <bool TRI>
 __global__ void __launch_bounds__(THREADS, 1)
 gram5_kernel(const uint8_t *__restrict__ pa, const uint8_t *__restrict__ pb,
-             int S, int B, int row_base, int rows, int *__restrict__ carry,
-             long long plane, long long ld) {
+             int S_all, int B, int row_base, int rows, int whole, int parts,
+             int part_len, int *__restrict__ carry, long long plane,
+             long long ld) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t *const sm =
       smem_raw + ((1024u - (wg::smem_addr(smem_raw) & 1023u)) & 1023u);
   uint8_t *const ring = sm + 2 * BUF;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wgi = tid >> 7, g = lane >> 2, q = lane & 3;
-  const int r0 = blockIdx.y * TM, c0 = blockIdx.x * TN;
+  int bx = blockIdx.x, by = blockIdx.y, k_part = 0, S = S_all;
+  if (TRI) {
+    if (bx >= whole) {  // a part of a block of the last wave
+      const int tail = (gridDim.x - whole) / parts, t = bx - whole;
+      bx = whole + t % tail;
+      k_part = t / tail * part_len;
+      S = min(S_all - k_part, part_len);
+    }
+    const int nc = rows / TN;
+    while (bx >= nc - 2 * by) {
+      bx -= nc - 2 * by;
+      ++by;
+    }
+    bx += 2 * by;
+  }
+  const int r0 = by * TM, c0 = bx * TN;
   const bool full = r0 + TM <= rows;  // else rows 64.. are past the carry
-  const bool active = wgi == 0 || full;
-  const uint8_t *const ga = pa + ((row_base + r0) >> 2);
-  const uint8_t *const gb = pb + (c0 >> 2);
+  // the second warpgroup's rows are loaded and written: not past the carry,
+  // and in K1's triangle not below the diagonal
+  const bool hi_rows = full && (!TRI || 2 * by + 1 <= bx);
+  const bool active = wgi == 0 || hi_rows;
+  const uint8_t *const ga =
+      pa + ((row_base + r0) >> 2) + static_cast<size_t>(k_part) * B;
+  const uint8_t *const gb = pb + (c0 >> 2) + static_cast<size_t>(k_part) * B;
   const int nst = (S + BK - 1) / BK;
   // the row decode: this warp's 16 samples are bytes 16 wgi + 4 (warp % 4)
   // .. + 3 of a row; row g its byte g / 4, row g + 8 byte g / 4 + 2
@@ -261,7 +402,7 @@ gram5_kernel(const uint8_t *__restrict__ pa, const uint8_t *__restrict__ pb,
 #pragma unroll
       for (int r = 0; r < 2; ++r) {  // rows: SNP s, 64 samples 64h..
         const int s = (tid >> 1) + 128 * r, h = tid & 1;
-        if (k0 + s < S && (h == 0 || full))
+        if (k0 + s < S && (h == 0 || hi_rows))
           cp16(rg + row_at(s) + 16 * h,
                ga + static_cast<size_t>(k0 + s) * B + 16 * h);
       }
@@ -299,12 +440,23 @@ gram5_kernel(const uint8_t *__restrict__ pa, const uint8_t *__restrict__ pb,
   load(2);
   __syncthreads();
   rows_of(0, 0, a[0]);
+  // K1's tile and its mirror into L2 (here: prefetched inside the loop,
+  // they cost ptxas the registers to keep the products in flight)
+  if (TRI && active)
+    for (int l = tid & 127; l < 4 * 64 * 2; l += 128) {
+      const int row = (l >> 1) & 63, col = 32 * (l & 1);  // 128-byte lines
+      int *const gram = carry + (l >> 7) * plane;
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+          gram + static_cast<long long>(r0 + 64 * wgi + row) * ld + c0 + col));
+      asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+          gram + static_cast<long long>(c0 + row) * ld + r0 + 64 * wgi + col));
+    }
   // An idle warpgroup multiplies too (rows nobody loaded, never written
   // out): products under a branch the compiler cannot prove uniform are
   // serialized by ptxas.
   for (int st = 0; st < nst; ++st) {
-    if (st == (nst > 2 ? nst - 2 : 0) && active)  // the carry tile into L2
-      for (int l = tid & 127; l < 5 * 64 * 2; l += 128)  // 128-byte lines
+    if (!TRI && st == (nst > 2 ? nst - 2 : 0) && active)  // the carry tile
+      for (int l = tid & 127; l < 5 * 64 * 2; l += 128)  // into L2: lines
         asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
             carry + (l >> 7) * plane + (r0 + 64 * wgi + ((l >> 1) & 63)) * ld +
             c0 + 32 * (l & 1)));
@@ -347,7 +499,14 @@ gram5_kernel(const uint8_t *__restrict__ pa, const uint8_t *__restrict__ pb,
   wg::keep(acc_d);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 
-  if (active) {
+  if (TRI) {
+    __syncthreads();  // both warpgroups' products are done: buffers free
+    const int w4 = warp & 3, i0 = r0 + 64 * wgi;
+    const bool diag = 2 * by + wgi == bx;
+    add_triangle(carry, plane, ld, i0, c0, active, diag, 16 * w4 + g,
+                      2 * q, w4, lane, reinterpret_cast<int *>(sm) +
+                      wgi * 64 * LDT, acc_v, acc_h, acc_d);
+  } else if (active) {
     // d[4j + 2h + e] is row 16 w + l/4 + 8h, column 8j + 2(l%4) + e
     int *base = carry + (r0 + 64 * wgi + 16 * (warp & 3) + g) * ld + c0 + 2 * q;
     add_fragments<128>(base, ld, plane, 0, 4, acc_v);  // V'V, V'H
@@ -356,18 +515,28 @@ gram5_kernel(const uint8_t *__restrict__ pa, const uint8_t *__restrict__ pb,
   }
 }
 
-int launch(const void *pa, const void *pb, int S, int B, int row_base,
-           int rows, int n_cols, void *carry, long long plane, long long ld,
-           void *stream) {
-  if (rows > 0 && n_cols > 0 && S > 0) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gram5_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    gram5_kernel<<<dim3(n_cols / TN, (rows + TM - 1) / TM), THREADS, SMEM,
-                   static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t *>(pa), static_cast<const uint8_t *>(pb), S,
-        B, row_base, rows, static_cast<int *>(carry), plane, ld);
-  }
+template <bool TRI>
+int launch(dim3 grid, const void *pa, const void *pb, int S, int B,
+           int row_base, int rows, int whole, int parts, int part_len,
+           void *carry, long long plane, long long ld, void *stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      gram5_kernel<TRI>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  gram5_kernel<TRI><<<grid, THREADS, SMEM,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t *>(pa), static_cast<const uint8_t *>(pb), S,
+      B, row_base, rows, whole, parts, part_len, static_cast<int *>(carry),
+      plane, ld);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_rect(const void *pa, const void *pb, int S, int B, int row_base,
+                int rows, int n_cols, void *carry, long long plane,
+                long long ld, void *stream) {
+  if (rows > 0 && n_cols > 0 && S > 0)
+    return launch<false>(dim3(n_cols / TN, (rows + TM - 1) / TM), pa, pb, S,
+                         B, row_base, rows, 0, 1, S, carry, plane, ld,
+                         stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -381,8 +550,8 @@ extern "C" int gram5_rows_launch(const void *packed, int S, int B, int row0,
                                  int rows, int n_cols, void *carry,
                                  void *stream) {
   const long long n = 4LL * B;
-  return launch(packed, packed, S, B, row0, rows, n_cols, carry,
-                static_cast<long long>(rows) * n, n, stream);
+  return launch_rect(packed, packed, S, B, row0, rows, n_cols, carry,
+                     static_cast<long long>(rows) * n, n, stream);
 }
 
 // slab_i, slab_j: (S, B) uint8 each, B % 16 == 0, 16-byte aligned (two
@@ -392,6 +561,28 @@ extern "C" int gram5_rows_launch(const void *packed, int S, int B, int row0,
 extern "C" int gram5_tile_launch(const void *slab_i, const void *slab_j,
                                  int S, int B, void *carry, void *stream) {
   const long long g = 4LL * B;
-  return launch(slab_i, slab_j, S, B, 0, static_cast<int>(g),
-                static_cast<int>(g), carry, g * g, g, stream);
+  return launch_rect(slab_i, slab_j, S, B, 0, static_cast<int>(g),
+                     static_cast<int>(g), carry, g * g, g, stream);
+}
+
+// K1: packed (S, B) uint8, B % 16 == 0, 16-byte aligned; carry (4, 4B, 4B)
+// int32 (V'V, H'H, D'D, H'V), updated in place over the full square from
+// the upper block triangle; the blocks from `whole` on cut into `parts`
+// SNP parts of part_len, a multiple of 256 (ops/kernels.py:gram4_plan).
+// Launches on `stream`; returns the CUDA error (0 on success).
+extern "C" int gram4_launch(const void *packed, int S, int B, int whole,
+                            int parts, int part_len, void *carry,
+                            void *stream) {
+  const int nc = 4 * B / TN, nr = (nc + 1) / 2;
+  if (nc > 0 && S > 0 && parts > 0 && part_len > 0) {
+    int blocks = 0;  // the upper block triangle: nc - 2 y blocks in row y
+    for (int y = 0; y < nr; ++y) blocks += nc - 2 * y;
+    if (whole < 0 || whole > blocks)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const long long n = 4LL * B;
+    return launch<true>(dim3(whole + (blocks - whole) * parts), packed,
+                        packed, S, B, 0, static_cast<int>(n), whole, parts,
+                        part_len, carry, n * n, n, stream);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

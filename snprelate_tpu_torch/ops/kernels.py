@@ -7,7 +7,9 @@ current stream or raises. There is no fallback from one to the other.
 ``<wrapper>.launches`` counts kernel launches, so a run can show which
 kernels its path went through.
 
-- ``gram4``     (K1) replaces ops/pairwise.py:_gram4_step of the JAX package
+- ``gram4``     (K1, ``csrc/gram5.cu``) replaces ops/pairwise.py:_gram4_step
+  of the JAX package: K1r's int8 wgmma body over the upper block triangle,
+  the lower half mirrored (launch plan :func:`gram4_plan`)
 - ``snp_stats`` (K2a) replaces chunk_snp_stats + the avg/scale of
   make_pca_block, and the per-SNP factors of _rand_block, _king_homo_step
   and _eigmix_step
@@ -55,7 +57,8 @@ kernels its path went through.
 - ``ibd_loglik`` (K14, ``csrc/ibd_mle.cu``) replaces ibd_mle_loglik's
   ll_tile: the log-likelihood of given (k0, k1, k2) per pair
 - ``perm_cross`` (K15) replaces models/cluster.py's _perm_cross_dev: the
-  between-group sums of every permutation split of cut_tree
+  between-group sums of every permutation split of cut_tree, on the
+  float64 tensor cores (launch plan :func:`perm_plan`)
 - ``gram6`` (K16, ``csrc/gram4.cu``) replaces ops/pairwise.py's
   _gram6_step (with genotype_planes and _sym_grams): the six one-hot plane
   cross-grams of a chunk
@@ -64,6 +67,7 @@ kernels its path went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
@@ -80,7 +84,7 @@ _F, _L, _D = ctypes.c_float, ctypes.c_longlong, ctypes.c_double
 # every C argument, the trailing stream included: an untyped argument would
 # go as a 32-bit int and cut a stream pointer
 _ARGTYPES = {
-    "gram4": (_P, _I, _I, _P, _P),
+    "gram4": (_P, _I, _I, _I, _I, _I, _P, _P),
     "gram6": (_P, _I, _I, _P, _P),
     "gram5_rows": (_P, _I, _I, _I, _I, _I, _P, _P),
     "norm_gram_rows": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
@@ -109,7 +113,7 @@ _ARGTYPES = {
     "ibd_simplex": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _D, _P, _I, _P, _P,
                     _P, _P, _P),
     "ibd_loglik": (_P, _P, _I, _P, _P, _I, _P, _P, _P),
-    "perm_cross": (_P, _P, _I, _I, _P, _P, _P),
+    "perm_cross": (_P, _P, _I, _I, _I, _P, _P, _P),
 }
 
 
@@ -122,7 +126,7 @@ _ENTRY_SOURCE = {"gram5_rows": "gram5", "norm_gram_rows": "norm_gram",
                  "king_screen_tile": "king_screen",
                  "king_screen_tile_count": "king_screen",
                  "king_screen_tile_write": "king_screen",
-                 "gram5_cross": "gram4", "gram6": "gram4",
+                 "gram5_cross": "gram4", "gram6": "gram4", "gram4": "gram5",
                  "ld_measure": "ld",
                  "ld_joint": "ld", "ibd_em": "ibd_mle",
                  "ibd_simplex": "ibd_mle", "ibd_loglik": "ibd_mle"}
@@ -141,7 +145,11 @@ def prepare(*names: str) -> None:
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    err = _entry(name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    # the current stream's raw handle (torch.cuda.current_stream builds a
+    # Stream object on every call: host time that a short kernel's timing
+    # sees); a CUDA tensor's device always has an index
+    err = _entry(name)(*args, torch._C._cuda_getCurrentRawStream(
+        device.index))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -193,12 +201,18 @@ def gram4_plain(packed: torch.Tensor, carry: torch.Tensor) -> None:
 
 def gram4(packed: torch.Tensor, carry: torch.Tensor) -> None:
     """carry (4, N, N) int32 += V'V, H'H, D'D, H'V of one packed (S, N/4)
-    chunk, updated in place (the JAX step's donated carry)."""
+    chunk, updated in place (the JAX step's donated carry). On the card:
+    K1r's int8 wgmma body (``csrc/gram5.cu``) over the upper block
+    triangle, each block's V'V, H'H, D'D and V'H also stored mirrored,
+    launched as :func:`gram4_plan` says; the counts are exact in any
+    order, so a second call gives the same bits."""
     S, B = _check_packed(packed)
     _check(carry, "carry", torch.int32, (4, 4 * B, 4 * B), packed.device)
     if not packed.is_cuda:
         return gram4_plain(packed, carry)
-    _launch("gram4", packed.device, packed.data_ptr(), S, B, carry.data_ptr())
+    plan = gram4_plan(4 * B, S, _sms(packed.device))
+    _launch("gram4", packed.device, packed.data_ptr(), S, B, plan.whole,
+            plan.parts, plan.part_len, carry.data_ptr())
     gram4.launches += 1
 
 
@@ -324,6 +338,63 @@ def gram5_plan(rows: int, n_cols: int) -> Gram5Plan:
     return Gram5Plan(-(-rows // GRAM5_ROWS), n_cols // GRAM5_COLS,
                      rows % GRAM5_ROWS != 0,
                      1024 + 2 * 3 * GRAM5_COLS * d + GRAM5_RING * ring)
+
+
+# ------------------------------------------------------- K1 launch plan
+
+GRAM4_MIN_PART = 512  # SNPs of the shortest part of a split block
+GRAM4_PART_COST = 12  # a block's fixed time (prologue, the epilogue's
+                      # atomics), in 256-SNP stages: what a split adds a
+                      # part (read from chip_smoke.py's `[time] gram4
+                      # parts` lines at N = 1,024 and 2,560)
+
+
+class Gram4Plan(NamedTuple):
+    """The launch of K1 gram4 (see :func:`gram4_plan`)."""
+    row_tiles: int  # block rows, 128 carry rows each
+    col_tiles: int  # 64-column tiles
+    blocks: int     # blocks of the upper block triangle
+    whole: int      # blocks not split: the first ``whole`` of the grid
+    parts: int      # SNP parts of each later block
+    part_len: int   # SNPs a part, a multiple of GRAM5_DEPTH
+    grid: int       # the grid: whole + (blocks - whole) * parts
+    ragged: bool    # the last block row's second warpgroup is idle
+    smem: int       # dynamic shared memory a block, bytes
+
+
+@functools.lru_cache(maxsize=1024)
+def gram4_plan(n: int, S: int, sms: int) -> Gram4Plan:
+    """The grid of one K1 launch over n samples (a multiple of 64) and S
+    SNPs on a card of ``sms`` SMs, as ``csrc/gram5.cu``'s gram4_launch
+    runs it: K1r's 128 x 64 blocks, only those with 64 x >= 128 y (the
+    upper block triangle, row y holding n / 64 - 2 y of them), one block
+    an SM, so blocks // sms whole waves and a last one of the rest. The
+    rest's blocks are cut into the parts (each at least GRAM4_MIN_PART
+    SNPs, a multiple of the 256-SNP stage) that end the last wave
+    soonest: waves of parts times a part's stages plus GRAM4_PART_COST.
+    Every block adds into the carry with atomics, exact in any order."""
+    if n % 64 or n < 0 or S < 0:
+        raise ValueError(f"n {n}: a multiple of 64; S {S} >= 0")
+    rt, ct = -(-n // GRAM5_ROWS), n // GRAM5_COLS
+    blocks = sum(ct - 2 * y for y in range(rt))
+    d = GRAM5_DEPTH
+    whole = blocks - blocks % sms
+    tail = blocks - whole
+
+    def length(k: int) -> int:  # SNPs a part, whole stages
+        return max(-(-S // k // d) * d, d)
+
+    def cost(k: int) -> int:
+        return -(-tail * k // sms) * (length(k) // d + GRAM4_PART_COST)
+
+    k = min(range(1, max(1, S // GRAM4_MIN_PART) + 1), key=cost)
+    if k == 1:
+        whole = blocks
+    parts = max(1, -(-S // length(k)))
+    return Gram4Plan(rt, ct, blocks, whole, parts, length(k),
+                     whole + (blocks - whole) * parts, n % GRAM5_ROWS != 0,
+                     gram5_plan(64, 64).smem)
+
 
 # ------------------------------------------------------------ K2a snp_stats
 
@@ -680,7 +751,13 @@ def rand_plan(length: int, rows: int, c: int, sms: int) -> RandPlan:
 
 
 def _sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def rand_h_plain(packed, avg, scale, g, h, y2=None) -> None:
@@ -1557,12 +1634,63 @@ def perm_cross_plain(u: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return ((uf @ d) * (1.0 - uf)).sum(1)
 
 
+PERM_ROWS = 128      # permutations per block tile
+PERM_COLS = 64       # columns of U D per block tile
+PERM_DEPTH = 64      # summed-axis entries per shared-memory stage
+PERM_PER_SM = 2      # resident blocks an SM: 8 warps of at most 128
+                     # registers, 93,184 bytes of shared memory each
+PERM_U_ROW = 68      # bytes of a staged U row: 17 aligned words
+PERM_MIN_SLICE = 64  # the shortest slice of a split summed axis
+PERM_BUSY = 0.75     # the share of the resident blocks to keep busy
+
+
+class PermPlan(NamedTuple):
+    """The launch of K15 perm_cross (see :func:`perm_plan`)."""
+    col_tiles: int   # blocks along the columns j (the grid's x)
+    row_tiles: int   # blocks along the permutations (the grid's y)
+    slice_len: int   # summed-axis entries a slice, a multiple of PERM_DEPTH
+    nslice: int      # slices: the grid's z
+    part: int        # float64 partials: one a permutation, slice and
+                     # column tile
+    smem: int        # dynamic shared memory a block, bytes
+
+
+@functools.lru_cache(maxsize=1024)
+def perm_plan(P: int, m: int, sms: int) -> PermPlan:
+    """The grid of one K15 launch over P permutations of m members on a
+    card of ``sms`` SMs, as ``csrc/perm_cross.cu`` runs it: blocks of 128
+    permutations x 64 columns, two an SM. Where those do not fill the
+    card, the summed axis is cut into the fewest slices (each at least
+    PERM_MIN_SLICE long, a multiple of the 64-deep stage) that keep
+    PERM_BUSY of the resident blocks busy over all waves (the busiest
+    count if none does); every block writes one partial a permutation,
+    added in slice and column order."""
+    if P < 0 or m < 0:
+        raise ValueError(f"P {P} and m {m} must be >= 0")
+    rt, ct = -(-P // PERM_ROWS), -(-m // PERM_COLS)
+    tiles = max(rt * ct, 1)
+    slots = PERM_PER_SM * sms
+
+    def busy(k: int) -> float:
+        return tiles * k / (-(-tiles * k // slots) * slots)
+
+    ks = range(1, max(1, m // PERM_MIN_SLICE) + 1)
+    want = next((k for k in ks if busy(k) >= PERM_BUSY), max(ks, key=busy))
+    slice_len = max(-(-m // want // PERM_DEPTH) * PERM_DEPTH, PERM_DEPTH)
+    nslice = -(-m // slice_len)
+    stage = PERM_DEPTH * (PERM_COLS + 8) * 8 + PERM_ROWS * PERM_U_ROW
+    smem = 2 * stage + PERM_ROWS * 2 * 8
+    return PermPlan(ct, rt, slice_len, nslice, P * ct * nslice, smem)
+
+
 def perm_cross(u: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """(P,) float64 rowsum((U D) * (1 - U)) of the 0/1 split indicators
     U (P, m) uint8 and the distances D (m, m) float64: for every
     permutation split p, the sum of D[a, b] over a in its first group and
-    b in its second. The card sums the per-column-tile partials in a
-    fixed order, so the result is bitwise repeatable."""
+    b in its second. On the card the product runs on the float64 tensor
+    cores, launched as :func:`perm_plan` says, and the partials of the
+    column tiles and slices are added in a fixed order, so the result is
+    bitwise repeatable."""
     if u.dim() != 2 or d.dim() != 2:
         raise ValueError("perm_cross: expected U (P, m) and D (m, m)")
     P, m = u.shape
@@ -1570,12 +1698,13 @@ def perm_cross(u: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     _check(d, "D", torch.float64, (m, m), u.device)
     if not u.is_cuda:
         return perm_cross_plain(u, d)
-    out = torch.empty(P, dtype=torch.float64, device=u.device)
-    part = torch.empty((P, max(-(-m // 64), 1)), dtype=torch.float64,
-                       device=u.device)
+    plan = perm_plan(P, m, _sms(u.device))
+    # the result and the partials in one allocation
+    buf = torch.empty(P + plan.part, dtype=torch.float64, device=u.device)
+    out = buf[:P]
     if P:
         _launch("perm_cross", u.device, u.data_ptr(), d.data_ptr(), P, m,
-                part.data_ptr(), out.data_ptr())
+                plan.slice_len, buf[P:].data_ptr(), out.data_ptr())
         perm_cross.launches += 1
     return out
 
