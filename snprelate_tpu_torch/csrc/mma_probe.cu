@@ -3,10 +3,11 @@
 // that K3a rand_h and K3b rand_yt use; the TF32 shape m16n8k8 .tf32
 // (float32 accumulate) of K2b norm_gram's 3xTF32 float gram, with its
 // cvt.rna.tf32.f32 split; and the int8 shapes (s8 x s8 -> s32):
-// mma.sync m16n8k32 (K1 gram4, K16 gram6, K8 gram5_cross, K2b's count
-// gram) and wgmma m64n64k32 and m64n128k32 with both operands in shared
-// memory and m64n64k32 and m64n128k32 with A from registers (K1r
-// gram5_rows and K1t gram5_tile take A from registers: csrc/wgmma_s8.cuh).
+// mma.sync m16n8k32 (K2b's count gram) and wgmma m64n64k32 and m64n128k32
+// with both operands in shared memory, and with A from registers (K1, K1r
+// gram5_rows and K1t gram5_tile: csrc/wgmma_s8.cuh) m64n64k32 and
+// m64n128k32, m64n96k32 (K16 gram6) and m64n32k32 and m64n16k32 (K8
+// gram5_cross's 16-query tile).
 //
 // Mode 0 checks a shape's fragment layout: one warp loads A (M x K) and
 // B (K x N), both row-major, into fragments by the layout K3a rand_h and
@@ -251,10 +252,8 @@ __global__ void __launch_bounds__(128) layout_wg(const int8_t *A,
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     const uint64_t db = wg::desc(wg::smem_addr(sb) + 32 * kk);
-    if constexpr (RS && N == 64) {
-      wg::mma_n64_rs(d, a[kk], db);
-    } else if constexpr (RS) {
-      wg::mma_n128_rs(d, a[kk], db);
+    if constexpr (RS) {
+      wg::mma_rs<N>(d, a[kk], db);
     } else {
       const uint64_t da = wg::desc(wg::smem_addr(sa) + 32 * kk);
       if constexpr (N == 64)
@@ -288,7 +287,7 @@ __global__ void __launch_bounds__(256) rate_wg(const int8_t *A, int iters,
     sa[i] = static_cast<uint8_t>(A[i & 31]);  // sa, then sb, contiguous
   wg::fence_proxy_async();
   __syncthreads();
-  constexpr int NACC = N == 64 ? 4 : 2;
+  constexpr int NACC = N == 64 ? 4 : 2;  // accumulators a warpgroup
   int d[NACC][N / 2];
 #pragma unroll
   for (int r = 0; r < NACC; ++r)
@@ -302,10 +301,8 @@ __global__ void __launch_bounds__(256) rate_wg(const int8_t *A, int iters,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       const uint64_t db = wg::desc(sb0 + 32 * kk);
-      if constexpr (RS && N == 64)
-        wg::mma_n64_rs(d[kk % NACC], a, db);
-      else if constexpr (RS)
-        wg::mma_n128_rs(d[kk % NACC], a, db);
+      if constexpr (RS)
+        wg::mma_rs<N>(d[kk % NACC], a, db);
       else if constexpr (N == 64)
         wg::mma_n64(d[kk % NACC], wg::desc(sa0 + 32 * kk), db);
       else
@@ -326,7 +323,8 @@ __global__ void __launch_bounds__(256) rate_wg(const int8_t *A, int iters,
 }
 
 // shape 5 m16n8k32 (mma.sync), 6 wgmma n64, 7 wgmma n128, 8 wgmma n64 and
-// 9 wgmma n128 with A from registers
+// 9 wgmma n128 with A from registers, then with A from registers 10 n96
+// (K16 gram6), 11 n32 and 12 n16 (K8 gram5_cross's 16-query tile)
 void run_s8(int shape, int mode, const int8_t *a, const int8_t *b, int *out,
             int iters, int blocks, cudaStream_t st) {
   if (shape == 5 && mode == 0)
@@ -345,10 +343,22 @@ void run_s8(int shape, int mode, const int8_t *a, const int8_t *b, int *out,
     layout_wg<64, true><<<1, 128, 0, st>>>(a, b, out);
   else if (shape == 8)
     rate_wg<64, true><<<blocks, 256, 0, st>>>(a, iters, out);
-  else if (mode == 0)
+  else if (shape == 9 && mode == 0)
     layout_wg<128, true><<<1, 128, 0, st>>>(a, b, out);
-  else
+  else if (shape == 9)
     rate_wg<128, true><<<blocks, 256, 0, st>>>(a, iters, out);
+  else if (shape == 10 && mode == 0)
+    layout_wg<96, true><<<1, 128, 0, st>>>(a, b, out);
+  else if (shape == 10)
+    rate_wg<96, true><<<blocks, 256, 0, st>>>(a, iters, out);
+  else if (shape == 11 && mode == 0)
+    layout_wg<32, true><<<1, 128, 0, st>>>(a, b, out);
+  else if (shape == 11)
+    rate_wg<32, true><<<blocks, 256, 0, st>>>(a, iters, out);
+  else if (mode == 0)
+    layout_wg<16, true><<<1, 128, 0, st>>>(a, b, out);
+  else
+    rate_wg<16, true><<<blocks, 256, 0, st>>>(a, iters, out);
 }
 
 template <int M, int K>
@@ -367,8 +377,9 @@ void run(int mode, const void *a, const void *b, void *out, int iters,
 
 // shape: 0 m8n8k4, 1 m16n8k4, 2 m16n8k8, 3 m16n8k16 (float64), 4 m16n8k8
 // .tf32; int8: 5 m16n8k32 (mma.sync), 6 wgmma m64n64k32, 7 wgmma
-// m64n128k32 (shared-memory operands), 8 wgmma m64n64k32 and 9 wgmma
-// m64n128k32 (A from registers). mode 0: a (M, K), b (K, 8) row-major
+// m64n128k32 (shared-memory operands), 8 wgmma m64n64k32, 9 wgmma
+// m64n128k32, 10 m64n96k32, 11 m64n32k32 and 12 m64n16k32 (A from
+// registers). mode 0: a (M, K), b (K, 8) row-major
 // in, out (M, 8); int8: a (M, K) and b = B' (N, K) int8, out (M, N)
 // int32; mode 1: a holds at least 32 values, out blocks * 256 values
 // (int32 for int8); mode 2 (shape 4): a holds `iters` floats, out

@@ -68,11 +68,11 @@
 // column c of n-tile nt is sample 4c + nt of its 32 columns (one byte),
 // and step kk's k index t + 4j is SNP 8kk + t + 4j of a 32-SNP group, so a
 // lane owns an 8 x 8 block of the tile and reads 8 SNPs' bytes a group.
-// The count gram is K1's int8 tensor-core product (csrc/gram4.cu,
-// mma.sync.m16n8k32 s8) on the same tile from the same code bytes: the k
-// index 4t + b (+16) is SNP t + 4b (+16), so a lane's int8 fragments
-// gather its own bytes (byte permutes, then valid-and-poly bits spread to
-// 0/1 bytes), and the int32 sums are exact. Each block accumulates float32
+// The count gram is an int8 tensor-core product (mma.sync.m16n8k32 s8)
+// on the same tile from the same code bytes: the k index 4t + b (+16) is
+// SNP t + 4b (+16), so a lane's int8 fragments gather its own bytes
+// (byte permutes, then valid-and-poly bits spread to 0/1 bytes), and the
+// int32 sums are exact. Each block accumulates float32
 // partials in registers and adds them every FOLD SNPs into a float64 tile
 // in shared memory (each lane its own slots: no barrier), which the
 // epilogue adds into the carry. The square modes compute the tiles on and

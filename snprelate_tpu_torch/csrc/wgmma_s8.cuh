@@ -1,6 +1,6 @@
 // int8 warpgroup products on Hopper (sm_90a): the shared-memory operand
-// layout, its descriptors and the wgmma.mma_async wrappers that K1r
-// gram5_rows and K1t gram5_tile (csrc/gram5.cu) run on, and that the probe
+// layout, its descriptors and the wgmma.mma_async wrappers that K1, K1r,
+// K1t, K16 and K8 (csrc/gram5.cu) run on, and that the probe
 // (csrc/mma_probe.cu, `python3 chip_smoke.py --mma-probe`) checks on the
 // card against a plain integer product.
 //
@@ -138,6 +138,64 @@ __device__ __forceinline__ void mma_n128_rs(int (&d)[64],
       : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40),
         WG_D8(48), WG_D8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 16) += A B', A's fragment in registers.
+__device__ __forceinline__ void mma_n16_rs(int (&d)[8],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p;\n}\n"
+      : WG_D8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 32) += A B', A's fragment in registers.
+__device__ __forceinline__ void mma_n32_rs(int (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : WG_D8(0), WG_D8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 96) += A B', A's fragment in registers.
+__device__ __forceinline__ void mma_n96_rs(int (&d)[48],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p;\n}\n"
+      : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x N) += A B', A's fragment in registers, for the widths the count
+// grams use: m64nNk32 with N = 16, 32, 64, 96 or 128.
+template <int N>
+__device__ __forceinline__ void mma_rs(int (&d)[N / 2],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 96 || N == 128);
+  if constexpr (N == 16) mma_n16_rs(d, a, db);
+  else if constexpr (N == 32) mma_n32_rs(d, a, db);
+  else if constexpr (N == 64) mma_n64_rs(d, a, db);
+  else if constexpr (N == 96) mma_n96_rs(d, a, db);
+  else mma_n128_rs(d, a, db);
 }
 
 // Pins registers that an asynchronous product reads: they may not be

@@ -40,9 +40,10 @@ kernels its path went through.
   tile_hits: the KING-robust screen of one super tile
 - ``pc_corr``   (K7) replaces ops/loadings.py:_corr_step: the correlation
   of every SNP with every eigenvector
-- ``gram5_cross`` (K8, ``csrc/gram4.cu``) replaces ops/pairwise.py's
+- ``gram5_cross`` (K8, ``csrc/gram5.cu``) replaces ops/pairwise.py's
   _cross_gram_step: the five (query x cohort) count grams of the serving
-  path, the query given as code bytes
+  path, the query given as code bytes; int8 wgmma, the cohort on A, the
+  query on B (launch plan :func:`cross_plan`)
 - ``ld_joint`` (K9, ``csrc/ld.cu``) replaces ops/ld.py:_joint_tile and the
   joint tables of ld_values_tile, band_exceeds_tile and _ld_packed_tile
 - ``ld_measure`` (K10, ``csrc/ld.cu``) replaces ops/ld.py's
@@ -59,9 +60,10 @@ kernels its path went through.
 - ``perm_cross`` (K15) replaces models/cluster.py's _perm_cross_dev: the
   between-group sums of every permutation split of cut_tree, on the
   float64 tensor cores (launch plan :func:`perm_plan`)
-- ``gram6`` (K16, ``csrc/gram4.cu``) replaces ops/pairwise.py's
+- ``gram6`` (K16, ``csrc/gram5.cu``) replaces ops/pairwise.py's
   _gram6_step (with genotype_planes and _sym_grams): the six one-hot plane
-  cross-grams of a chunk
+  cross-grams of a chunk, on K1r's int8 wgmma body over the upper block
+  triangle (launch plan :func:`gram6_plan`)
 """
 
 from __future__ import annotations
@@ -85,7 +87,7 @@ _F, _L, _D = ctypes.c_float, ctypes.c_longlong, ctypes.c_double
 # go as a 32-bit int and cut a stream pointer
 _ARGTYPES = {
     "gram4": (_P, _I, _I, _I, _I, _I, _P, _P),
-    "gram6": (_P, _I, _I, _P, _P),
+    "gram6": (_P, _I, _I, _I, _I, _I, _P, _P),
     "gram5_rows": (_P, _I, _I, _I, _I, _I, _P, _P),
     "norm_gram_rows": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     "king_screen_count": (_P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _P, _P),
@@ -104,7 +106,7 @@ _ARGTYPES = {
     "king_screen_tile_write": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _P,
                                _P, _L, _P),
     "pc_corr": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P),
-    "gram5_cross": (_P, _I, _I, _P, _I, _L, _I, _P, _P),
+    "gram5_cross": (_P, _I, _I, _P, _I, _L, _I, _I, _P, _P),
     "ld_joint": (_P, _I, _I, _I, _I, _I, _P, _P),
     "ld_measure": (_P, _L, _I, _I, _D, _P, _P, _P),
     "pop_counts": (_P, _I, _I, _P, _I, _P, _P, _P),
@@ -126,7 +128,7 @@ _ENTRY_SOURCE = {"gram5_rows": "gram5", "norm_gram_rows": "norm_gram",
                  "king_screen_tile": "king_screen",
                  "king_screen_tile_count": "king_screen",
                  "king_screen_tile_write": "king_screen",
-                 "gram5_cross": "gram4", "gram6": "gram4", "gram4": "gram5",
+                 "gram5_cross": "gram5", "gram6": "gram5", "gram4": "gram5",
                  "ld_measure": "ld",
                  "ld_joint": "ld", "ibd_em": "ibd_mle",
                  "ibd_simplex": "ibd_mle", "ibd_loglik": "ibd_mle"}
@@ -235,12 +237,19 @@ def gram6_plain(packed: torch.Tensor, carry: torch.Tensor) -> None:
 def gram6(packed: torch.Tensor, carry: torch.Tensor) -> None:
     """carry (6, N, N) int32 += I_a'I_b for (a, b) in ``SYM_PAIRS``, I_a
     = [g == a] the one-hot planes of one packed (S, N/4) chunk (missing
-    and 0xFF padding: all-zero planes), updated in place."""
+    and 0xFF padding: all-zero planes), updated in place. On the card:
+    K1r's int8 wgmma body (``csrc/gram5.cu``) over the upper block
+    triangle, each block's nine plane products I_a'I_b (a, b in 0, 1, 2)
+    stored directly (a <= b) and mirrored (a >= b), launched as
+    :func:`gram6_plan` says; the counts are exact in any order, so a second
+    call gives the same bits."""
     S, B = _check_packed(packed)
     _check(carry, "carry", torch.int32, (6, 4 * B, 4 * B), packed.device)
     if not packed.is_cuda:
         return gram6_plain(packed, carry)
-    _launch("gram6", packed.device, packed.data_ptr(), S, B, carry.data_ptr())
+    plan = gram6_plan(4 * B, S, _sms(packed.device))
+    _launch("gram6", packed.device, packed.data_ptr(), S, B, plan.whole,
+            plan.parts, plan.part_len, carry.data_ptr())
     gram6.launches += 1
 
 
@@ -362,21 +371,12 @@ class Gram4Plan(NamedTuple):
     smem: int       # dynamic shared memory a block, bytes
 
 
-@functools.lru_cache(maxsize=1024)
-def gram4_plan(n: int, S: int, sms: int) -> Gram4Plan:
-    """The grid of one K1 launch over n samples (a multiple of 64) and S
-    SNPs on a card of ``sms`` SMs, as ``csrc/gram5.cu``'s gram4_launch
-    runs it: K1r's 128 x 64 blocks, only those with 64 x >= 128 y (the
-    upper block triangle, row y holding n / 64 - 2 y of them), one block
-    an SM, so blocks // sms whole waves and a last one of the rest. The
-    rest's blocks are cut into the parts (each at least GRAM4_MIN_PART
-    SNPs, a multiple of the 256-SNP stage) that end the last wave
-    soonest: waves of parts times a part's stages plus GRAM4_PART_COST.
-    Every block adds into the carry with atomics, exact in any order."""
-    if n % 64 or n < 0 or S < 0:
-        raise ValueError(f"n {n}: a multiple of 64; S {S} >= 0")
-    rt, ct = -(-n // GRAM5_ROWS), n // GRAM5_COLS
-    blocks = sum(ct - 2 * y for y in range(rt))
+def _split_tail(blocks: int, S: int, sms: int) -> tuple[int, int, int]:
+    """(whole, parts, part_len) of a triangle launch of ``blocks`` blocks,
+    one an SM: blocks // sms whole waves, and the rest's blocks cut into
+    the parts (each at least GRAM4_MIN_PART SNPs, a multiple of the
+    256-SNP stage) that end the last wave soonest: waves of parts times a
+    part's stages plus GRAM4_PART_COST."""
     d = GRAM5_DEPTH
     whole = blocks - blocks % sms
     tail = blocks - whole
@@ -390,10 +390,68 @@ def gram4_plan(n: int, S: int, sms: int) -> Gram4Plan:
     k = min(range(1, max(1, S // GRAM4_MIN_PART) + 1), key=cost)
     if k == 1:
         whole = blocks
-    parts = max(1, -(-S // length(k)))
-    return Gram4Plan(rt, ct, blocks, whole, parts, length(k),
+    return whole, max(1, -(-S // length(k))), length(k)
+
+
+@functools.lru_cache(maxsize=1024)
+def gram4_plan(n: int, S: int, sms: int) -> Gram4Plan:
+    """The grid of one K1 launch over n samples (a multiple of 64) and S
+    SNPs on a card of ``sms`` SMs, as ``csrc/gram5.cu``'s gram4_launch
+    runs it: K1r's 128 x 64 blocks, only those with 64 x >= 128 y (the
+    upper block triangle, row y holding n / 64 - 2 y of them), one block
+    an SM, the last wave's blocks cut into SNP parts as
+    :func:`_split_tail` says. Every block adds into the carry with
+    atomics, exact in any order."""
+    if n % 64 or n < 0 or S < 0:
+        raise ValueError(f"n {n}: a multiple of 64; S {S} >= 0")
+    rt, ct = -(-n // GRAM5_ROWS), n // GRAM5_COLS
+    blocks = sum(ct - 2 * y for y in range(rt))
+    whole, parts, part_len = _split_tail(blocks, S, sms)
+    return Gram4Plan(rt, ct, blocks, whole, parts, part_len,
                      whole + (blocks - whole) * parts, n % GRAM5_ROWS != 0,
                      gram5_plan(64, 64).smem)
+
+
+# ------------------------------------------------------ K16 launch plan
+
+# K16's block (csrc/gram5.cu Gram6): two warpgroups of 64 rows x 32
+# columns, three m64n96k32 products a k step
+GRAM6_ROWS, GRAM6_COLS = 128, 32
+
+
+class Gram6Plan(NamedTuple):
+    """The launch of K16 gram6 (see :func:`gram6_plan`)."""
+    row_tiles: int  # block rows of the carry
+    col_tiles: int  # block columns of the carry
+    blocks: int     # blocks of the upper block triangle
+    whole: int      # blocks not split: the first ``whole`` of the grid
+    parts: int      # SNP parts of each later block
+    part_len: int   # SNPs a part, a multiple of GRAM5_DEPTH
+    grid: int       # the grid: whole + (blocks - whole) * parts
+    ragged: bool    # the last block row's second warpgroup idle
+    smem: int       # dynamic shared memory a block, bytes
+
+
+@functools.lru_cache(maxsize=1024)
+def gram6_plan(n: int, S: int, sms: int) -> Gram6Plan:
+    """The grid of one K16 launch over n samples (a multiple of 64) and S
+    SNPs on a card of ``sms`` SMs, as ``csrc/gram5.cu``'s gram6_launch
+    runs it: blocks of GRAM6_ROWS x GRAM6_COLS over the upper block
+    triangle, row y holding n / 32 - 4 y of them (a block's first column
+    at or past its first row), one block an SM, the last wave's blocks cut
+    into SNP parts as :func:`_split_tail` says. Shared memory: 1,024
+    bytes of alignment slack, two decoded stages of the columns' I0, I1
+    and I2 planes and K1r's ring of packed stages."""
+    if n % 64 or n < 0 or S < 0:
+        raise ValueError(f"n {n}: a multiple of 64; S {S} >= 0")
+    R, C = GRAM6_ROWS, GRAM6_COLS
+    rt, ct = -(-n // R), n // C
+    blocks = sum(ct - R // C * y for y in range(rt))
+    whole, parts, part_len = _split_tail(blocks, S, sms)
+    ring = gram5_plan(64, 64).smem - 1024 - 2 * 3 * GRAM5_COLS * GRAM5_DEPTH
+    return Gram6Plan(rt, ct, blocks, whole, parts, part_len,
+                     whole + (blocks - whole) * parts, n % R != 0,
+                     1024 + 2 * 3 * C * GRAM5_DEPTH + ring)
 
 
 # ------------------------------------------------------------ K2a snp_stats
@@ -1224,7 +1282,11 @@ def gram5_cross(packed: torch.Tensor, query: torch.Tensor,
     missing) over the chunk's first Sq <= S SNPs, its SNP axis contiguous
     (a column slice of a longer query is fine); the chunk's SNPs past Sq
     count as missing for the query. The int32 sums are exact below 2^31
-    SNPs (the engine's guard_count_snps)."""
+    SNPs (the engine's guard_count_snps). On the card: int8 wgmma, the
+    cohort's V, H and D decoded into A fragments, the query's decoded once
+    a stage into shared memory as B, in query tiles of :func:`cross_plan`;
+    each carry entry has one writer, so a second call gives the same
+    bits."""
     S, B = _check_packed(packed)
     _check_query(packed, query)
     q = query.shape[0]
@@ -1233,11 +1295,43 @@ def gram5_cross(packed: torch.Tensor, query: torch.Tensor,
         return gram5_cross_plain(packed, query, carry)
     _launch("gram5_cross", packed.device, packed.data_ptr(), S, B,
             query.data_ptr(), q, query.stride(0), query.shape[1],
-            carry.data_ptr())
+            cross_plan(q).tile, carry.data_ptr())
     gram5_cross.launches += 1
 
 
 gram5_cross.launches = 0
+
+CROSS_TILES = (16, 64)  # K8's query tiles (csrc/gram5.cu Cross<QT>)
+CROSS_SMALL = 32        # queries up to which 16-query tiles are taken: a
+                        # 16-query tile over the cohort costs about 0.30 ms
+                        # at S = 8,192, N = 100,096, a 64-query one 0.65
+                        # (chip_smoke.py's [time] gram5_cross lines)
+CROSS_ROW = GRAM5_DEPTH + 16  # bytes of a query row in a ring stage
+
+
+class CrossPlan(NamedTuple):
+    """The launch of K8 gram5_cross (see :func:`cross_plan`)."""
+    tile: int     # queries a block: 16 or 64
+    q_tiles: int  # the grid's y
+    smem: int     # dynamic shared memory a block, bytes
+
+
+def cross_plan(q: int) -> CrossPlan:
+    """K8's query tile for q queries, as ``csrc/gram5.cu``'s
+    gram5_cross_launch takes it: 16 queries a block (V x [Qv | Qh] as
+    m64n32k32, D x Qd as m64n16k32) up to CROSS_SMALL, else 64 (m64n128k32
+    and m64n64k32), q / tile blocks over each 128 cohort samples. Shared
+    memory: 1,024 bytes of slack, two decoded stages of the query's Qv, Qh
+    and Qd planes and a ring of three stages, each the cohort rows' packed
+    bytes (K1r's) and the tile's code bytes, CROSS_ROW a query."""
+    if q < 0:
+        raise ValueError(f"q {q} < 0")
+    tile = CROSS_TILES[0] if q <= CROSS_SMALL else CROSS_TILES[1]
+    d = GRAM5_DEPTH
+    rows = d * GRAM5_ROWS // 4 + d // 4 * 16  # K1r's packed rows a stage
+    return CrossPlan(tile, -(-q // tile),
+                     1024 + 2 * 3 * tile * d + GRAM5_RING * (
+                         rows + tile * CROSS_ROW))
 
 
 # ------------------------------------------------------------ K9 ld_joint
