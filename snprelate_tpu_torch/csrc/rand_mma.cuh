@@ -6,7 +6,8 @@
 // against 32-deep four-stage rings, three stages, one block an SM with
 // more registers, 128-wide tiles and a product order by fragment row.
 //
-// K2b norm_gram (csrc/norm_gram.cu) uses its cp.async helpers.
+// K2b norm_gram (csrc/norm_gram.cu) uses its cp.async helpers; K7 pc_corr
+// (csrc/pc_corr.cu) its product, operand stages and fragment loads.
 //
 // A block owns a BM x BN tile of the output (BN = 32 or 64, a template
 // parameter, so a 32-wide product does no masked work) and walks its slice
@@ -86,15 +87,15 @@ __device__ __forceinline__ void wait() {
 
 // Rows [r0, r0 + BK) and columns [c0, c0 + BN) of a row-major (rows, c)
 // float64 matrix into dst[BK][LDB], rows from r_end and columns from c on
-// zero-filled. vec: 16-byte copies (c even, the matrix 16-byte aligned),
-// else 8-byte ones.
-template <int BN>
+// zero-filled, by the block's THREADS threads. vec: 16-byte copies (c
+// even, the matrix 16-byte aligned), else 8-byte ones.
+template <int BN, int THREADS = Tile<BN>::THREADS>
 __device__ __forceinline__ void load_operand(double *dst,
                                              const double *__restrict__ src,
                                              int r0, int r_end, int c, int c0,
                                              bool vec) {
   using T = Tile<BN>;
-  for (int e = threadIdx.x; e < BK * BN / 2; e += T::THREADS) {
+  for (int e = threadIdx.x; e < BK * BN / 2; e += THREADS) {
     const int r = e / (BN / 2), q = 2 * (e % (BN / 2));
     const int row = r0 + r, col = c0 + q;
     const int n = row < r_end ? max(0, min(2, c - col)) : 0;
@@ -109,14 +110,14 @@ __device__ __forceinline__ void load_operand(double *dst,
   }
 }
 
-// The B fragments of the stage's 8-deep step kk for a warp whose columns
-// start at column n0 of the tile.
-template <int BN>
-__device__ __forceinline__ void load_b(double (&b)[NT][2], const double *bs,
+// The B fragments (W of 8 columns each) of the stage's 8-deep step kk for
+// a warp whose columns start at column n0 of the tile.
+template <int BN, int W = NT>
+__device__ __forceinline__ void load_b(double (&b)[W][2], const double *bs,
                                        int kk, int n0, int g, int t) {
   const double *p = bs + (KS * kk + t) * Tile<BN>::LDB + n0 + g;
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
+  for (int nt = 0; nt < W; ++nt) {
     b[nt][0] = p[8 * nt];
     b[nt][1] = p[4 * Tile<BN>::LDB + 8 * nt];
   }

@@ -39,13 +39,16 @@ kernels its path went through.
 - ``king_screen_tile`` (K6t, ``csrc/king_screen.cu``) replaces king.py's
   tile_hits: the KING-robust screen of one super tile
 - ``pc_corr``   (K7) replaces ops/loadings.py:_corr_step: the correlation
-  of every SNP with every eigenvector
+  of every SNP with every eigenvector, its three products on the float64
+  tensor cores (launch plan :func:`corr_plan`)
 - ``gram5_cross`` (K8, ``csrc/gram5.cu``) replaces ops/pairwise.py's
   _cross_gram_step: the five (query x cohort) count grams of the serving
   path, the query given as code bytes; int8 wgmma, the cohort on A, the
   query on B (launch plan :func:`cross_plan`)
 - ``ld_joint`` (K9, ``csrc/ld.cu``) replaces ops/ld.py:_joint_tile and the
-  joint tables of ld_values_tile, band_exceeds_tile and _ld_packed_tile
+  joint tables of ld_values_tile, band_exceeds_tile and _ld_packed_tile:
+  the nine one-hot plane products on int8 wgmma, K16's block (launch plan
+  :func:`ld_plan`)
 - ``ld_measure`` (K10, ``csrc/ld.cu``) replaces ops/ld.py's
   _ld_from_joint_jnp and _em_haplo_jnp: the LD measures of joint tables
 - ``pop_counts`` (K11) replaces models/fst.py's _pop_counts step: the
@@ -752,7 +755,7 @@ def _check_rand(packed, avg, scale):
     return S, B
 
 
-def _axis_slice(n: int, want: int, depth: int = 32) -> int:
+def _axis_slice(n: int, want: int, depth: int) -> int:
     """Length of a slice of a kernel's summed axis of length n (samples for
     rand_h and pc_corr, SNPs for rand_yt) cut into about ``want`` slices:
     each slice a multiple of ``depth`` (the kernel's stage) and, unless the
@@ -779,6 +782,19 @@ RAND_DEPTH = 64   # summed-axis entries per shared-memory stage
 RAND_PER_SM = {32: 4, 64: 2}
 
 
+def _fill_slices(tiles: int, slots: int, most: int, share: float) -> int:
+    """How many slices to cut a kernel's summed axis into: the fewest k in
+    1..most with which ``tiles`` x k blocks keep ``share`` of the card's
+    ``slots`` resident blocks busy over all their waves, else the k that
+    keeps the most busy."""
+
+    def busy(k: int) -> float:
+        return tiles * k / (-(-tiles * k // slots) * slots)
+
+    ks = range(1, max(1, most) + 1)
+    return next((k for k in ks if busy(k) >= share), max(ks, key=busy))
+
+
 def rand_plan(length: int, rows: int, c: int, sms: int) -> RandPlan:
     """The tiles, slices and scratch of one rand_h or rand_yt launch: the
     summed axis of ``length`` (rand_h: the N samples; rand_yt: the S SNPs),
@@ -792,14 +808,8 @@ def rand_plan(length: int, rows: int, c: int, sms: int) -> RandPlan:
     needs no scratch."""
     width = 32 if c <= 32 else 64
     row_tiles, col_tiles = -(-rows // RAND_ROWS), -(-c // width)
-    tiles = max(row_tiles * col_tiles, 1)
-    slots = RAND_PER_SM[width] * sms
-
-    def busy(k: int) -> float:
-        return tiles * k / (-(-tiles * k // slots) * slots)
-
-    ks = range(1, max(1, length // 512) + 1)
-    want = next((k for k in ks if busy(k) >= 0.9), max(ks, key=busy))
+    want = _fill_slices(max(row_tiles * col_tiles, 1),
+                        RAND_PER_SM[width] * sms, length // 512, 0.9)
     slice_len = _axis_slice(length, want, RAND_DEPTH)
     nslice = max(1, -(-length // slice_len))
     many = nslice > 1
@@ -1221,7 +1231,12 @@ def pc_corr(packed: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """(S, K) float64 pairwise-complete Pearson correlation of each SNP of
     one packed (S, N/4) chunk with each column of e (N, K) float64 (zero
     rows past the samples), over the SNP's valid calls; NaN where it has at
-    most one valid call or either variance is not positive."""
+    most one valid call or either variance is not positive. On the card
+    the three products G E, V E and V (E∘E) run on the float64 tensor cores
+    with G and V decoded from the codes in registers
+    (``csrc/pc_corr.cu``), launched as :func:`corr_plan` says; the sample
+    slices' partials are added in slice order, so a second call gives the
+    same bits."""
     S, B = _check_packed(packed)
     dev, n = packed.device, 4 * B
     if e.dim() != 2:
@@ -1230,19 +1245,60 @@ def pc_corr(packed: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     _check(e, "e", torch.float64, (n, K), dev)
     if not packed.is_cuda:
         return pc_corr_plain(packed, e)
-    tiles = max(-(-S // 64) * -(-K // 32), 1)
-    slice_len = _axis_slice(n, -(-4 * _sms(dev) // tiles))
-    nslice = -(-n // slice_len) if n else 1
-    part = torch.empty((nslice, 3, S, K), dtype=torch.float64, device=dev)
-    spart = torch.empty((nslice, 3, S), dtype=torch.float64, device=dev)
-    corr = torch.empty((S, K), dtype=torch.float64, device=dev)
+    plan = corr_plan(n, S, K, _sms(dev))
+    f64 = dict(dtype=torch.float64, device=dev)
+    scratch = torch.empty(plan.part + plan.spart, **f64)  # the partials
+    corr = torch.empty((S, K), **f64)
     _launch("pc_corr", dev, packed.data_ptr(), S, B, e.data_ptr(), K,
-            slice_len, part.data_ptr(), spart.data_ptr(), corr.data_ptr())
+            plan.slice_len, scratch.data_ptr(),
+            scratch[plan.part:].data_ptr(), corr.data_ptr())
     pc_corr.launches += 1
     return corr
 
 
 pc_corr.launches = 0
+
+CORR_ROWS = 128  # SNP rows per block of pc_corr (csrc/rand_mma.cuh BM)
+CORR_COLS = 32   # columns of E per block (csrc/pc_corr.cu BN)
+CORR_WARP = (16, 16)  # SNP rows and columns of a warp tile: 16 warps a
+                      # block of at most 128 registers, one block an SM
+CORR_BUSY = 0.9  # the share of the card's SMs to keep busy
+
+
+class CorrPlan(NamedTuple):
+    """The launch of K7 pc_corr (see :func:`corr_plan`)."""
+    row_tiles: int  # blocks along the SNPs (the grid's x)
+    col_tiles: int  # blocks along the columns of E (the grid's y)
+    slice_len: int  # samples a slice, a multiple of RAND_DEPTH
+    nslice: int     # slices: the grid's z (0 for a chunk of no samples)
+    part: int       # float64 partial products: nslice x (3, S, K)
+    spart: int      # float64 partial counts: nslice x (3, S)
+    threads: int    # threads a block
+    smem: int       # dynamic shared memory a block, bytes
+
+
+@functools.lru_cache(maxsize=1024)
+def corr_plan(n: int, S: int, K: int, sms: int) -> CorrPlan:
+    """The grid, slices and scratch of one K7 launch over a chunk of n
+    samples (a multiple of 64), S SNPs and K columns of E on a card of
+    ``sms`` SMs, as ``csrc/pc_corr.cu`` runs it: blocks of CORR_ROWS x
+    CORR_COLS, one an SM, the sample axis cut into the fewest slices (each
+    at least 512 long, a multiple of the 64-sample stage) that keep
+    CORR_BUSY of the SMs busy over all waves, each block's partial sums
+    going to scratch. Shared memory: two stages of E's rows (64 x 40
+    float64, padded) and of the rows' packed bytes (128 x 16)."""
+    if n % RAND_DEPTH or min(n, S, K) < 0:
+        raise ValueError(f"n {n}: a multiple of {RAND_DEPTH}; S {S} and K "
+                         f"{K} >= 0")
+    rt, ct = -(-S // CORR_ROWS), -(-K // CORR_COLS)
+    want = _fill_slices(max(rt * ct, 1), sms, n // 512, CORR_BUSY)
+    slice_len = _axis_slice(n, want, RAND_DEPTH)
+    nslice = -(-n // slice_len)
+    warps = CORR_ROWS // CORR_WARP[0] * (CORR_COLS // CORR_WARP[1])
+    stage = RAND_DEPTH * (CORR_COLS + 8) * 8 + CORR_ROWS * RAND_DEPTH // 4
+    return CorrPlan(rt, ct, slice_len, nslice, nslice * 3 * S * K,
+                    nslice * 3 * S, 32 * warps, 2 * stage)
+
 
 # ---------------------------------------------------------- K8 gram5_cross
 
@@ -1366,7 +1422,11 @@ def ld_joint(packed: torch.Tensor, i0: int, si: int, j0: int,
              sj: int) -> torch.Tensor:
     """J (3, 3, si, sj) int32, J[a][b][i][j] = #samples with genotype a at
     packed row i0 + i and b at row j0 + j, both valid, between two row
-    ranges of one packed (rows, N/4) matrix (0xFF padding is missing)."""
+    ranges of one packed (rows, N/4) matrix (0xFF padding is missing; the
+    ranges may overlap). On the card: int8 wgmma, the i rows' one-hot
+    planes decoded into A fragments in registers, the j rows' once a stage
+    into shared memory as B, launched as :func:`ld_plan` says; each entry
+    has one writer, so a second call gives the same bits."""
     B = _check_ranges(packed, i0, si, j0, sj)
     if not packed.is_cuda:
         return ld_joint_plain(packed, i0, si, j0, sj)
@@ -1378,6 +1438,38 @@ def ld_joint(packed: torch.Tensor, i0: int, si: int, j0: int,
 
 
 ld_joint.launches = 0
+
+LD_ROWS, LD_COLS = 128, 32  # K9's block: i rows (two warpgroups of 64) x
+                            # j rows (csrc/ld.cu LM, LN)
+LD_DEPTH = 256  # samples a stage
+LD_RING = 3     # packed stages in the cp.async ring
+LD_I_ROW = 80   # bytes of a ring stage's i row: 64 and 16 pad
+LD_J_ROW = 96   # bytes of a ring stage's j row: 64 and 32 pad
+
+
+class LdPlan(NamedTuple):
+    """The launch of K9 ld_joint (see :func:`ld_plan`)."""
+    col_tiles: int  # blocks along the j rows (the grid's x)
+    row_tiles: int  # blocks along the i rows (the grid's y)
+    stages: int     # 256-sample stages, the last one partial if B % 64
+    smem: int       # dynamic shared memory a block, bytes
+
+
+def ld_plan(si: int, sj: int, B: int) -> LdPlan:
+    """The grid and shared memory of one K9 launch over i rows [i0, i0 +
+    si) and j rows [j0, j0 + sj) of a packed (rows, B) matrix (B a
+    multiple of 16), as ``csrc/ld.cu``'s ld_joint_launch runs it: blocks
+    of LD_ROWS x LD_COLS rows, one an SM (144 accumulators a thread).
+    Shared memory: 1,024 bytes of alignment slack, two decoded stages of
+    the j rows' I0, I1 and I2 planes (one byte a sample and plane) and a
+    ring of packed stages (the i rows' 64 bytes padded to LD_I_ROW, the j
+    rows' to LD_J_ROW)."""
+    if min(si, sj, B) < 0 or B % 16:
+        raise ValueError(f"si {si}, sj {sj} >= 0; B {B}: a multiple of 16")
+    ring = LD_ROWS * LD_I_ROW + LD_COLS * LD_J_ROW
+    return LdPlan(-(-sj // LD_COLS), -(-si // LD_ROWS),
+                  -(-B // (LD_DEPTH // 4)),
+                  1024 + 2 * 3 * LD_COLS * LD_DEPTH + LD_RING * ring)
 
 
 # ---------------------------------------------------------- K10 ld_measure
@@ -1762,14 +1854,8 @@ def perm_plan(P: int, m: int, sms: int) -> PermPlan:
     if P < 0 or m < 0:
         raise ValueError(f"P {P} and m {m} must be >= 0")
     rt, ct = -(-P // PERM_ROWS), -(-m // PERM_COLS)
-    tiles = max(rt * ct, 1)
-    slots = PERM_PER_SM * sms
-
-    def busy(k: int) -> float:
-        return tiles * k / (-(-tiles * k // slots) * slots)
-
-    ks = range(1, max(1, m // PERM_MIN_SLICE) + 1)
-    want = next((k for k in ks if busy(k) >= PERM_BUSY), max(ks, key=busy))
+    want = _fill_slices(max(rt * ct, 1), PERM_PER_SM * sms,
+                        m // PERM_MIN_SLICE, PERM_BUSY)
     slice_len = max(-(-m // want // PERM_DEPTH) * PERM_DEPTH, PERM_DEPTH)
     nslice = -(-m // slice_len)
     stage = PERM_DEPTH * (PERM_COLS + 8) * 8 + PERM_ROWS * PERM_U_ROW
