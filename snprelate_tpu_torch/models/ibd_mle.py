@@ -11,7 +11,7 @@ R/IBD.R:79-321 + src/genIBD.cpp).
 ``ibd_mle`` and ``ibd_mle_loglik`` stage the table and the genotype codes
 on the device once and run every pair through the kernels of
 ``csrc/ibd_mle.cu`` (K12 ``ibd_em``, K13 ``ibd_simplex``, K14
-``ibd_loglik``), one block or warp a pair; on the CPU the kernels' plain
+``ibd_loglik``), one warp a pair; on the CPU the kernels' plain
 versions run over pair batches. The numpy copies of the JAX package's host
 functions below serve ``pair_ibd`` and ``pair_ibd_mle_loglik``, which run
 no device code.
@@ -451,9 +451,10 @@ def ibd_mle(data, sample_id=None, snp_id=None, autosome_only=True,
             batch=256, num_thread=None, device=None) -> IBDMLEResult:
     """snpgdsIBDMLE (R/IBD.R:79). The table and the genotype codes are
     staged on the device once; on the card one launch covers up to 2^20
-    pairs (``CARD_PAIRS``), one block a pair, so no pair waits for the
-    slowest pair of a batch. ``batch`` bounds the pairs of one call of the
-    plain versions on the CPU (their (batch, S, K) gather). Pairs are
+    pairs (``CARD_PAIRS``), one warp a pair that takes the next pair when
+    its own ends, so no pair waits for the slowest pair of a batch.
+    ``batch`` bounds the pairs of one call of the plain versions on the
+    CPU (their (batch, S, K) gather). Pairs are
     independent, so neither changes the result. num_thread is accepted
     and ignored. device: None = the CUDA card; "cpu" runs the plain
     versions."""

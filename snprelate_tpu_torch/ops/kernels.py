@@ -55,9 +55,12 @@ kernels its path went through.
   per-population allele counts and numbers of a chunk
 - ``ibd_em`` (K12, ``csrc/ibd_mle.cu``) replaces models/ibd_mle.py's em3
   (with _loglik_dev and _em_loop_dev) and em9: the per-pair EM of the
-  3-state and the Jacquard (9-state) IBD likelihood
+  3-state and the Jacquard (9-state) IBD likelihood, one warp a pair, the
+  block's pairs sharing the table's tiles in shared memory (launch plan
+  :func:`ibd_plan`)
 - ``ibd_simplex`` (K13, ``csrc/ibd_mle.cu``) replaces models/ibd_mle.py's
-  nm: the per-pair downhill simplex of the 3-state likelihood
+  nm: the per-pair downhill simplex of the 3-state likelihood, on K12's
+  ring
 - ``ibd_loglik`` (K14, ``csrc/ibd_mle.cu``) replaces ibd_mle_loglik's
   ll_tile: the log-likelihood of given (k0, k1, k2) per pair
 - ``perm_cross`` (K15) replaces models/cluster.py's _perm_cross_dev: the
@@ -113,10 +116,10 @@ _ARGTYPES = {
     "ld_joint": (_P, _I, _I, _I, _I, _I, _P, _P),
     "ld_measure": (_P, _L, _I, _I, _D, _P, _P, _P),
     "pop_counts": (_P, _I, _I, _P, _I, _P, _P, _P),
-    "ibd_em": (_P, _P, _I, _I, _P, _P, _I, _P, _I, _D, _P, _I, _P, _P, _P,
-               _P),
-    "ibd_simplex": (_P, _P, _I, _P, _P, _I, _P, _P, _I, _D, _P, _I, _P, _P,
-                    _P, _P, _P),
+    "ibd_em": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I, _D, _P, _I,
+               _I, _I, _P, _P, _P, _P, _P),
+    "ibd_simplex": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _D, _P,
+                    _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "ibd_loglik": (_P, _P, _I, _P, _P, _I, _P, _P, _P),
     "perm_cross": (_P, _P, _I, _I, _I, _P, _P, _P),
 }
@@ -1713,14 +1716,133 @@ def _check_ibd(table: torch.Tensor, gT: torch.Tensor, i: torch.Tensor,
 
 
 def _padded(table: torch.Tensor) -> torch.Tensor:
-    """The kernels' table layout (S, 16, KP): each (SNP, code) row padded
-    with zeros to whole 32-byte sectors (KP = 4 for K = 3, 12 for K = 9),
-    so a thread's row costs the L2 no more sectors than it holds."""
-    S, K = table.shape[0], table.shape[-1]
-    out = torch.zeros((S, 16, 4 if K == 3 else 12), dtype=torch.float64,
-                      device=table.device)
-    out[:, :, :K] = table.reshape(S, 16, K)
+    """K14's table layout (S, 16, 4) of a 3-state table: each (SNP, code)
+    row padded with a zero to a whole 32-byte sector, so a thread's row
+    costs the L2 no more sectors than it holds."""
+    S = table.shape[0]
+    out = torch.zeros((S, 16, 4), dtype=torch.float64, device=table.device)
+    out[:, :, :3] = table.reshape(S, 16, 3)
     return out
+
+
+IBD_WARPS = 16    # K12 / K13: pairs a block, one a warp (csrc IW)
+IBD_TILE = 256    # SNPs a tile of the ring, 8 a lane (TILE)
+IBD_STAGES = 8    # ring stages at most (MAX_STAGES)
+# static shared memory kept beside the ring: the code map (16 codes x 16
+# words), the candidates, the stages' mbarriers and release counters take
+# 1,264 bytes
+IBD_STATIC = 2048
+IBD_PER_SM = 1    # resident blocks an SM (512 threads, 128 registers)
+SMEM_MAX = 232_448  # dynamic shared memory a block can have on Hopper
+
+
+class IbdPlan(NamedTuple):
+    """The launch of K12 ibd_em or K13 ibd_simplex (see :func:`ibd_plan`)."""
+    grid: int     # blocks: a persistent grid
+    warps: int    # warps a block, one pair each at a time
+    tiles: int    # tiles of IBD_TILE SNPs a sweep
+    planes: int   # planes of the staged table (a stage adds a zero plane)
+    stages: int   # ring stages
+    smem: int     # dynamic shared memory a block (the ring), bytes
+
+
+@functools.lru_cache(maxsize=1024)
+def ibd_plan(B: int, S: int, planes: int, sms: int) -> IbdPlan:
+    """The grid of one K12 / K13 launch over B pairs and S SNPs with a
+    staged table of ``planes`` planes (:func:`ibd_layout`) on a card of
+    ``sms`` SMs, as ``csrc/ibd_mle.cu`` runs it: IBD_PER_SM blocks of
+    IBD_WARPS warps an SM, no more than B pairs fill; a ring of as many
+    stages (planes + 1 planes of IBD_TILE doubles each, up to IBD_STAGES)
+    as shared memory holds."""
+    if B < 0 or S < 0:
+        raise ValueError(f"B {B} and S {S} must be >= 0")
+    if not 1 <= planes <= 81:
+        raise ValueError(f"planes {planes}: 1 to 81")
+    tiles = max(1, -(-S // IBD_TILE))
+    stage = (planes + 1) * IBD_TILE * 8
+    stages = min(IBD_STAGES, (SMEM_MAX - IBD_STATIC) // stage)
+    grid = max(1, min(sms * IBD_PER_SM, -(-B // IBD_WARPS)))
+    return IbdPlan(grid, IBD_WARPS, tiles, planes, stages, stages * stage)
+
+
+def ibd_layout(table: torch.Tensor):
+    """K12 / K13's staged table of a Pr(IBS | IBD) table (S, 4, 4, K):
+    (planes (G, P, IBD_TILE) float64, cmap (16, K) int32). The distinct
+    non-zero columns of the 9 valid codes' rows (column (3 g_i + g_j) K +
+    k over the SNPs, compared exactly) are the P planes, cut into G tiles
+    of IBD_TILE SNPs (zero past S); cmap[4 g_i + g_j, k] is that code's
+    plane of state k, P (the kernel's zero plane) for an all-zero column
+    and for every state of a code with a missing genotype. Those codes'
+    rows must be zero (the kernels read no entry for them), and every
+    entry finite (the columns are compared exactly): raises otherwise."""
+    S, K = table.shape[0], table.shape[-1]
+    t = table.reshape(S, 4, 4, K)
+    if bool((t[:, 3] != 0).any()) or bool((t[:, :, 3] != 0).any()):
+        raise ValueError("table: the rows of a code with a missing genotype "
+                         "must be zero (the kernels skip such SNPs)")
+    if not bool(torch.isfinite(t).all()):
+        raise ValueError("table: every entry must be finite")
+    cols = t[:, :3, :3, :].reshape(S, 9 * K).T.contiguous()
+    # each column against every other, exactly, in one transfer
+    same = torch.stack([(cols == c).all(1) for c in cols]).cpu()
+    nonzero = (cols != 0).any(1).cpu()
+    plane, first = [], []
+    for c in range(9 * K):
+        if not bool(nonzero[c]):
+            plane.append(-1)
+            continue
+        j = int(torch.nonzero(same[c, :c + 1])[0])
+        if j == c:
+            first.append(c)
+        plane.append(plane[j] if j < c else len(first) - 1)
+    P = max(1, len(first))
+    cmap = torch.full((4, 4, K), P, dtype=torch.int32)
+    cmap[:3, :3] = torch.tensor([P if q < 0 else q for q in plane],
+                                dtype=torch.int32).view(3, 3, K)
+    G = max(1, -(-S // IBD_TILE))
+    planes = torch.zeros((P, G * IBD_TILE), dtype=torch.float64,
+                         device=table.device)
+    if first:
+        planes[:len(first), :S] = cols[first]
+    planes = planes.view(P, G, IBD_TILE).transpose(0, 1).contiguous()
+    return planes, cmap.view(16, K).to(table.device)
+
+
+def nm_table(table: torch.Tensor) -> torch.Tensor:
+    """The (S, 4, 4, 3) table of (pr0 - pr2, pr1 - pr2, pr2) that K13's
+    planes hold, subtracted as ibd_simplex_plain subtracts."""
+    return torch.stack([table[..., 0] - table[..., 2],
+                        table[..., 1] - table[..., 2], table[..., 2]], -1)
+
+
+def ibd_codes(gT: torch.Tensor) -> torch.Tensor:
+    """K12 / K13's codes of gT (N, S) uint8: (N, G, 32, 4) uint8, the 32
+    words of each tile. Word l of tile g holds lane l's 8 SNPs IBD_TILE g
+    + 32 r + l (r = 0..7), each code in the low 2 bits of nibble r, so
+    that (w_i << 2) | w_j holds the pair's codes 4 g_i + g_j and a warp
+    reads a tile's codes of a row in one coalesced 128-byte load; 3
+    (missing) past S."""
+    N, S = gT.shape
+    G = max(1, -(-S // IBD_TILE))
+    c = torch.full((N, G * IBD_TILE), 3, dtype=torch.uint8,
+                   device=gT.device)
+    c[:, :S] = gT
+    # (row, tile, byte u of the word, SNP r = 2 u + v, lane)
+    c = c.view(N, G, 4, 2, 32)
+    b = c[:, :, :, 0] | (c[:, :, :, 1] << 4)  # (row, tile, u, lane)
+    return b.transpose(2, 3).contiguous()
+
+
+def _ibd_staged(table: torch.Tensor, gT: torch.Tensor, B: int,
+                nm: bool = False):
+    """(planes, cmap, codes, plan, queue) of a K12 / K13 launch (K13's
+    table staged as it reads it: its missing-code rows are zero exactly
+    where the table's are)."""
+    planes, cmap = ibd_layout(nm_table(table) if nm else table)
+    codes = ibd_codes(gT)
+    plan = ibd_plan(B, table.shape[0], planes.shape[1], _sms(table.device))
+    queue = torch.zeros(1, dtype=torch.int32, device=table.device)
+    return planes, cmap, codes, plan, queue
 
 
 def ibd_em(table: torch.Tensor, gT: torch.Tensor, i: torch.Tensor,
@@ -1730,7 +1852,12 @@ def ibd_em(table: torch.Tensor, gT: torch.Tensor, i: torch.Tensor,
     the EM of each pair (i[b], j[b]) from init (B, K) (the JAX package's
     em3 for K = 3, with the relatedness adjust when ``adjust``; em9 for the
     Jacquard table, K = 9): iterated until |ll - old_ll| <= reltol (|ll0|
-    + |reltol|) or max_iter + 1 trips. One block a pair on the card."""
+    + |reltol|) or max_iter + 1 trips. On the card one warp a pair, the
+    pairs of a block sharing the staged table's tiles in a shared-memory
+    ring (:func:`ibd_layout`, :func:`ibd_codes`, :func:`ibd_plan`; a
+    table with a non-zero missing-code row or a non-finite entry is
+    refused there); a pair's result does not depend on the batch it comes
+    in."""
     S, K, B = _check_ibd(table, gT, i, j)
     _check(init, "init", torch.float64, (B, K), table.device)
     if adjust and K != 3:
@@ -1740,15 +1867,17 @@ def ibd_em(table: torch.Tensor, gT: torch.Tensor, i: torch.Tensor,
     p = torch.empty((B, K), dtype=torch.float64, device=table.device)
     ll = torch.empty(B, dtype=torch.float64, device=table.device)
     niter = torch.empty(B, dtype=torch.int32, device=table.device)
-    tab = _padded(table)
     cand = candidates(table.device) if adjust else None
     if B:
-        _launch("ibd_em", table.device, tab.data_ptr(), gT.data_ptr(), S, K,
-                i.data_ptr(), j.data_ptr(), B, init.data_ptr(),
+        planes, cmap, codes, plan, queue = _ibd_staged(table, gT, B)
+        _launch("ibd_em", table.device, planes.data_ptr(), plan.tiles,
+                plan.planes, plan.stages, codes.data_ptr(), cmap.data_ptr(),
+                i.data_ptr(), j.data_ptr(), B, K, init.data_ptr(),
                 int(max_iter), float(reltol),
                 None if cand is None else cand.data_ptr(),
-                0 if cand is None else len(cand), p.data_ptr(),
-                ll.data_ptr(), niter.data_ptr())
+                0 if cand is None else len(cand), plan.grid, plan.smem,
+                queue.data_ptr(), p.data_ptr(), ll.data_ptr(),
+                niter.data_ptr())
         ibd_em.launches += 1
     return p, ll, niter
 
@@ -1762,7 +1891,9 @@ def ibd_simplex(table: torch.Tensor, gT: torch.Tensor, i: torch.Tensor,
     """(k0, k1, loglik float64, nfunk int32), each (B,), of the downhill
     simplex (Nelder-Mead on -loglik) of each pair from (k0, k1) (B,)
     float64 over the 3-state table: the JAX package's nm, with the
-    relatedness adjust when ``adjust``. One block a pair on the card."""
+    relatedness adjust when ``adjust``. On the card one warp a pair as in
+    :func:`ibd_em`, each sweep evaluating the points the pair's simplex
+    step knows."""
     S, _, B = _check_ibd(table, gT, i, j, states=(3,))
     _check(k0, "k0", torch.float64, (B,), table.device)
     _check(k1, "k1", torch.float64, (B,), table.device)
@@ -1772,15 +1903,17 @@ def ibd_simplex(table: torch.Tensor, gT: torch.Tensor, i: torch.Tensor,
     out = [torch.empty(B, dtype=torch.float64, device=table.device)
            for _ in range(3)]
     nfunk = torch.empty(B, dtype=torch.int32, device=table.device)
-    tab = _padded(table)
     cand = candidates(table.device) if adjust else None
     if B:
-        _launch("ibd_simplex", table.device, tab.data_ptr(), gT.data_ptr(),
-                S, i.data_ptr(), j.data_ptr(), B, k0.data_ptr(),
-                k1.data_ptr(), int(max_iter), float(reltol),
+        planes, cmap, codes, plan, queue = _ibd_staged(table, gT, B, True)
+        _launch("ibd_simplex", table.device, planes.data_ptr(), plan.tiles,
+                plan.planes, plan.stages, codes.data_ptr(), cmap.data_ptr(),
+                i.data_ptr(), j.data_ptr(), B, k0.data_ptr(), k1.data_ptr(),
+                int(max_iter), float(reltol),
                 None if cand is None else cand.data_ptr(),
-                0 if cand is None else len(cand),
-                *(t.data_ptr() for t in out), nfunk.data_ptr())
+                0 if cand is None else len(cand), plan.grid, plan.smem,
+                queue.data_ptr(), *(t.data_ptr() for t in out),
+                nfunk.data_ptr())
         ibd_simplex.launches += 1
     return (*out, nfunk)
 
