@@ -29,7 +29,9 @@ kernels its path went through.
   _king_homo_rows_step and _eigmix_rows_step
 - ``king_screen`` (K6) replaces king.py's _strip_counters, strip_hits,
   strip_mask and gather_hits: the KING-robust screen of one strip, its
-  hits compacted in row-major order
+  hits compacted in row-major order in one pass over the grams (equal
+  units of the pairs, a shared-memory hit buffer a unit, the offsets by a
+  decoupled look-back; launch plan :func:`screen_plan`)
 - ``gram5_tile`` (K1t, ``csrc/gram5.cu``) replaces ops/tiles.py's
   _basis_tile_scan_c: the five count grams of one super tile, its rows and
   columns from two sample-group slabs, on K1r's body
@@ -37,7 +39,7 @@ kernels its path went through.
   _gcta_tile_scan_c (the GCTA division on the card) and the float grams of
   _eigmix_tile_scan_c and _king_homo_tile_scan_c
 - ``king_screen_tile`` (K6t, ``csrc/king_screen.cu``) replaces king.py's
-  tile_hits: the KING-robust screen of one super tile
+  tile_hits: the KING-robust screen of one super tile, on K6's kernel
 - ``pc_corr``   (K7) replaces ops/loadings.py:_corr_step: the correlation
   of every SNP with every eigenvector, its three products on the float64
   tensor cores (launch plan :func:`corr_plan`)
@@ -77,6 +79,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -96,9 +99,8 @@ _ARGTYPES = {
     "gram6": (_P, _I, _I, _I, _I, _I, _P, _P),
     "gram5_rows": (_P, _I, _I, _I, _I, _I, _P, _P),
     "norm_gram_rows": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
-    "king_screen_count": (_P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _P, _P),
-    "king_screen_write": (_P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _P, _P,
-                          _L, _P),
+    "king_screen": (_P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _I, _L, _I, _P,
+                    _P, _L, _P, _P),
     "snp_stats": (_P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "norm_gram": (_P, _I, _I, _P, _P, _P, _P),
     "norm_table": (_P, _P, _P, _I, _I, _P, _P),
@@ -107,10 +109,8 @@ _ARGTYPES = {
     "het_count": (_P, _I, _I, _P, _P),
     "gram5_tile": (_P, _P, _I, _I, _P, _P),
     "norm_gram_tile": (_P, _P, _I, _I, _P, _P, _P, _I, _P),
-    "king_screen_tile_count": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _P,
-                               _P),
-    "king_screen_tile_write": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _P,
-                               _P, _L, _P),
+    "king_screen_tile": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _I, _L, _I,
+                         _P, _P, _L, _P, _P),
     "pc_corr": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P),
     "gram5_cross": (_P, _I, _I, _P, _I, _L, _I, _I, _P, _P),
     "ld_joint": (_P, _I, _I, _I, _I, _I, _P, _P),
@@ -128,12 +128,8 @@ _ARGTYPES = {
 # the C entries that live in another kernel's source
 _ENTRY_SOURCE = {"gram5_rows": "gram5", "norm_gram_rows": "norm_gram",
                  "norm_table": "norm_gram",
-                 "king_screen_count": "king_screen",
-                 "king_screen_write": "king_screen", "gram5_tile": "gram5",
-                 "norm_gram_tile": "norm_gram",
+                 "gram5_tile": "gram5", "norm_gram_tile": "norm_gram",
                  "king_screen_tile": "king_screen",
-                 "king_screen_tile_count": "king_screen",
-                 "king_screen_tile_write": "king_screen",
                  "gram5_cross": "gram5", "gram6": "gram5", "gram4": "gram5",
                  "ld_measure": "ld",
                  "ld_joint": "ld", "ibd_em": "ibd_mle",
@@ -152,12 +148,15 @@ def prepare(*names: str) -> None:
         _entry(name)
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _raw_stream(device: torch.device) -> int:
     # the current stream's raw handle (torch.cuda.current_stream builds a
     # Stream object on every call: host time that a short kernel's timing
     # sees); a CUDA tensor's device always has an index
-    err = _entry(name)(*args, torch._C._cuda_getCurrentRawStream(
-        device.index))
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    err = _entry(name)(*args, _raw_stream(device))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -952,6 +951,126 @@ def _screen_thresholds(cutoff: float):
                                          4e-6 * abs(thr_w)))
 
 
+SCREEN_THREADS = 256   # K6 / K6t: threads a block (csrc THREADS)
+SCREEN_PER_SM = 3      # resident blocks an SM (PER_SM, __launch_bounds__)
+SCREEN_STEP = 2048     # columns a block tests a step (STEP_COLS)
+SCREEN_BUF = 1024      # hits a unit keeps in shared memory (BUF)
+# shared memory a block: the buffer's 7 planes, the warps' totals, the
+# unit and its offset
+SCREEN_SMEM = 7 * 4 * SCREEN_BUF + 4 * SCREEN_THREADS // 32 + 16
+SCREEN_UNIT_PAIRS = 1 << 14  # fewest pairs a unit while the grid is short
+SCREEN_CAP_FLOOR = 1 << 16   # hits the output holds at least
+
+
+class ScreenPlan(NamedTuple):
+    """The launch of K6 king_screen or K6t king_screen_tile (see
+    :func:`screen_plan`)."""
+    units: int   # blocks, one contiguous range of the pairs each
+    pairs: int   # pairs the screen tests
+    smem: int    # static shared memory a block, bytes
+
+
+def screen_cols(r: int, nrows: int, ncols: int, tri: bool,
+                row_off: int) -> int:
+    """The pairs the rows [0, r) of a screen test: each row r' its columns
+    [0, cols(r')), cols = ncols, or with tri clamp(row_off + r', 0,
+    ncols) (the strict lower triangle of a strip from row0 = row_off, or
+    of a diagonal tile); csrc/king_screen.cu's cols_before."""
+    if not tri:
+        return r * ncols
+    i0 = min(nrows, max(0, -row_off))           # cols >= 0 from here
+    i1 = min(nrows, max(i0, ncols - row_off))   # cols = ncols from here
+    m = min(max(r, i0), i1)
+    return (m - i0) * (2 * row_off + i0 + m - 1) // 2 + max(0, r - i1) * ncols
+
+
+@functools.lru_cache(maxsize=1024)
+def screen_plan(nrows: int, ncols: int, tri: bool, row_off: int,
+                sms: int) -> ScreenPlan:
+    """The grid of one K6 / K6t launch over the screen of ``nrows`` rows
+    (see :func:`screen_cols`) on a card of ``sms`` SMs: the row-major
+    pairs cut into equal units (:func:`screen_start`), SCREEN_PER_SM an SM,
+    so every unit is resident at once, and fewer, of SCREEN_UNIT_PAIRS
+    pairs at least, where the screen is small; no unit for no pair."""
+    if nrows < 0 or ncols < 0:
+        raise ValueError(f"nrows {nrows} and ncols {ncols} must be >= 0")
+    pairs = screen_cols(nrows, nrows, ncols, tri, row_off)
+    units = 0 if pairs == 0 else max(1, min(SCREEN_PER_SM * sms,
+                                            -(-pairs // SCREEN_UNIT_PAIRS)))
+    return ScreenPlan(units, pairs, SCREEN_SMEM)
+
+
+def screen_start(u: int, plan: ScreenPlan, nrows: int, ncols: int,
+                 tri: bool, row_off: int) -> tuple[int, int]:
+    """(row, column) where unit u of ``plan`` starts: pair floor(u pairs /
+    units) of the row-major order, its column rounded down to a multiple
+    of 4 (so its loads stay 16-byte aligned); (nrows, 0) for u = units.
+    Unit u tests the pairs from its start up to unit u + 1's;
+    csrc/king_screen.cu's unit_start."""
+    if u >= plan.units:
+        return nrows, 0
+    e = u * plan.pairs // plan.units
+    lo, hi = 0, nrows
+    while hi - lo > 1:
+        mid = (lo + hi) >> 1
+        if screen_cols(mid, nrows, ncols, tri, row_off) <= e:
+            lo = mid
+        else:
+            hi = mid
+    return lo, (e - screen_cols(lo, nrows, ncols, tri, row_off)) & ~3
+
+
+# (device index, stream, thread) -> the launches' status words (zero
+# between launches: the kernel clears them) and the pinned hit count
+_SCREEN_SCRATCH: dict = {}
+
+
+def _screen_scratch(dev: torch.device, stream: int):
+    """(status array, pinned host total, its numpy view) of K6 / K6t
+    launches on ``stream`` from this thread (made zero once, kept)."""
+    key = (dev.index, stream, threading.get_ident())
+    got = _SCREEN_SCRATCH.get(key)
+    if got is None:
+        status = torch.zeros(SCREEN_PER_SM * _sms(dev) + 3,
+                             dtype=torch.int64, device=dev)
+        total = torch.zeros(1, dtype=torch.int64, pin_memory=True)
+        got = _SCREEN_SCRATCH[key] = (status, total, total.numpy())
+    return got
+
+
+def _screen(wrapper, plan: ScreenPlan, dev, *args) -> torch.Tensor:
+    """One K6 / K6t launch (C entry ``wrapper.__name__``) with its launch
+    arguments ``args``: the output holds the last call's total with
+    headroom (SCREEN_CAP_FLOOR at least); the entry waits for the stream
+    (the one sync) and leaves the true total in pinned memory, and a total
+    past the capacity launches again at the exact size
+    (``wrapper.relaunches``). Returns the (7, total) hits, a view of the
+    output."""
+    if plan.units == 0:
+        return torch.empty((7, 0), dtype=torch.int32, device=dev)
+    stream = _raw_stream(dev)
+    status, total_h, total_np = _screen_scratch(dev, stream)
+    fn = _entry(wrapper.__name__)
+    last = wrapper.last_total
+    cap = max(SCREEN_CAP_FLOOR, last + last // 4)
+    while True:
+        out = torch.empty((7, cap), dtype=torch.int32, device=dev)
+        err = fn(*args, status.data_ptr(), out.data_ptr(), cap,
+                 total_h.data_ptr(), stream)
+        if err:
+            _SCREEN_SCRATCH.clear()  # a launch that failed may leave words
+            raise RuntimeError(f"{wrapper.__name__} kernel launch failed: "
+                               f"CUDA error {err}")
+        wrapper.launches += 1
+        total = int(total_np[0])
+        if total <= cap:
+            break
+        wrapper.relaunches += 1
+        cap = total
+    wrapper.last_total = total
+    return out[:, :total]
+
+
 def king_screen_plain(carry: torch.Tensor, fam: torch.Tensor, row0: int,
                       nrows: int, cutoff: float) -> torch.Tensor:
     """Plain version of :func:`king_screen`: integer torch code on the
@@ -989,7 +1108,10 @@ def king_screen(carry: torch.Tensor, fam: torch.Tensor, row0: int,
     none). Tests every pair (row0 + r, j), r < nrows, j < row0 + r, with
     the admit-only float32 pre-test of kinship >= cutoff, and returns the
     hits as (7, hits) int32, in row-major order: strip row r, column j,
-    then the pair's ss = IBS1 + 4 IBS0, hv, vh, IBS0 and vv."""
+    then the pair's ss = IBS1 + 4 IBS0, hv, vh, IBS0 and vv. On the card
+    one launch of csrc/king_screen.cu reads each gram once
+    (:func:`screen_plan`) and one sync reads the hit count; the result is
+    a view of the output buffer (:func:`_screen`)."""
     if carry.dim() != 3 or carry.shape[0] != 5:
         raise ValueError("carry: expected the (5, R, N) strip grams")
     _, R, n = carry.shape
@@ -1001,21 +1123,24 @@ def king_screen(carry: torch.Tensor, fam: torch.Tensor, row0: int,
                          f"a ({R}, {n}) strip")
     if not carry.is_cuda:
         return king_screen_plain(carry, fam, row0, nrows, cutoff)
-    thr = [float(x) for x in _screen_thresholds(cutoff)]
-    counts = torch.empty(nrows, dtype=torch.int32, device=dev)
-    args = (carry.data_ptr(), R, n, fam.data_ptr(), row0, nrows, *thr)
-    _launch("king_screen_count", dev, *args, counts.data_ptr())
-    offsets = torch.zeros(nrows + 1, dtype=torch.int64, device=dev)
-    offsets[1:] = torch.cumsum(counts, 0, dtype=torch.int64)  # the scan
-    total = int(offsets[-1])
-    out = torch.empty((7, total), dtype=torch.int32, device=dev)
-    _launch("king_screen_write", dev, *args, offsets.data_ptr(),
-            out.data_ptr(), total)
-    king_screen.launches += 1
-    return out
+    return _king_screen_card(carry, fam, row0, nrows, cutoff)
+
+
+def _king_screen_card(carry, fam, row0, nrows, cutoff) -> torch.Tensor:
+    """The card's route of :func:`king_screen`, its arguments checked."""
+    _, R, n = carry.shape
+    plan = screen_plan(nrows, n, True, row0, _sms(carry.device))
+    vec = n % 4 == 0 and carry.data_ptr() % 16 == 0 \
+        and fam.data_ptr() % 16 == 0
+    return _screen(king_screen, plan, carry.device, carry.data_ptr(), R, n,
+                   fam.data_ptr(), row0, nrows,
+                   *map(float, _screen_thresholds(cutoff)), plan.units,
+                   plan.pairs, int(vec))
 
 
 king_screen.launches = 0
+king_screen.relaunches = 0
+king_screen.last_total = 0
 
 # ----------------------------------------------------------- K1t gram5_tile
 
@@ -1180,7 +1305,8 @@ def king_screen_tile(counters: torch.Tensor, fam_rows: torch.Tensor,
     (r, j) with row_off + r > j (row_off = r0 - c0 = 0: the strict lower
     triangle), with the admit-only float32 pre-test of kinship >= cutoff,
     and returns the hits as (7, hits) int32 in row-major tile order: tile
-    row, tile column, then ss = IBS1 + 4 IBS0, hv, vh, IBS0 and vv."""
+    row, tile column, then ss = IBS1 + 4 IBS0, hv, vh, IBS0 and vv. On
+    the card K6's kernel runs it, one launch and one sync a call."""
     if counters.dim() != 3 or counters.shape[0] != 5:
         raise ValueError("counters: expected the (5, g, g) tile grams")
     g = counters.shape[1]
@@ -1191,22 +1317,28 @@ def king_screen_tile(counters: torch.Tensor, fam_rows: torch.Tensor,
     if not counters.is_cuda:
         return king_screen_tile_plain(counters, fam_rows, fam_cols, row_off,
                                       diag, cutoff)
-    thr = [float(x) for x in _screen_thresholds(cutoff)]
-    counts = torch.empty(g, dtype=torch.int32, device=dev)
-    args = (counters.data_ptr(), g, fam_rows.data_ptr(), fam_cols.data_ptr(),
-            int(row_off), int(bool(diag)), *thr)
-    _launch("king_screen_tile_count", dev, *args, counts.data_ptr())
-    offsets = torch.zeros(g + 1, dtype=torch.int64, device=dev)
-    offsets[1:] = torch.cumsum(counts, 0, dtype=torch.int64)  # the scan
-    total = int(offsets[-1])
-    out = torch.empty((7, total), dtype=torch.int32, device=dev)
-    _launch("king_screen_tile_write", dev, *args, offsets.data_ptr(),
-            out.data_ptr(), total)
-    king_screen_tile.launches += 1
-    return out
+    return _king_screen_tile_card(counters, fam_rows, fam_cols, row_off,
+                                  diag, cutoff)
+
+
+def _king_screen_tile_card(counters, fam_rows, fam_cols, row_off, diag,
+                           cutoff) -> torch.Tensor:
+    """The card's route of :func:`king_screen_tile`, its arguments
+    checked."""
+    g = counters.shape[1]
+    plan = screen_plan(g, g, bool(diag), int(row_off), _sms(counters.device))
+    vec = g % 4 == 0 and counters.data_ptr() % 16 == 0 \
+        and fam_cols.data_ptr() % 16 == 0
+    return _screen(king_screen_tile, plan, counters.device,
+                   counters.data_ptr(), g, fam_rows.data_ptr(),
+                   fam_cols.data_ptr(), int(row_off), int(bool(diag)),
+                   *map(float, _screen_thresholds(cutoff)), plan.units,
+                   plan.pairs, int(vec))
 
 
 king_screen_tile.launches = 0
+king_screen_tile.relaunches = 0
+king_screen_tile.last_total = 0
 
 # ------------------------------------------------------------- K7 pc_corr
 
