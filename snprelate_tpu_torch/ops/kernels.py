@@ -52,7 +52,9 @@ kernels its path went through.
   the nine one-hot plane products on int8 wgmma, K16's block (launch plan
   :func:`ld_plan`)
 - ``ld_measure`` (K10, ``csrc/ld.cu``) replaces ops/ld.py's
-  _ld_from_joint_jnp and _em_haplo_jnp: the LD measures of joint tables
+  _ld_from_joint_jnp and _em_haplo_jnp: the LD measures of joint tables;
+  r and dprime in two passes, their EM pairs on a worklist that a
+  persistent pass's lanes refill from
 - ``pop_counts`` (K11) replaces models/fst.py's _pop_counts step: the
   per-population allele counts and numbers of a chunk
 - ``ibd_em`` (K12, ``csrc/ibd_mle.cu``) replaces models/ibd_mle.py's em3
@@ -64,7 +66,8 @@ kernels its path went through.
   nm: the per-pair downhill simplex of the 3-state likelihood, on K12's
   ring
 - ``ibd_loglik`` (K14, ``csrc/ibd_mle.cu``) replaces ibd_mle_loglik's
-  ll_tile: the log-likelihood of given (k0, k1, k2) per pair
+  ll_tile: the log-likelihood of given (k0, k1, k2) per pair, on K12's
+  ring, P pairs a warp (launch plan :func:`loglik_plan`)
 - ``perm_cross`` (K15) replaces models/cluster.py's _perm_cross_dev: the
   between-group sums of every permutation split of cut_tree, on the
   float64 tensor cores (launch plan :func:`perm_plan`)
@@ -114,13 +117,14 @@ _ARGTYPES = {
     "pc_corr": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P),
     "gram5_cross": (_P, _I, _I, _P, _I, _L, _I, _I, _P, _P),
     "ld_joint": (_P, _I, _I, _I, _I, _I, _P, _P),
-    "ld_measure": (_P, _L, _I, _I, _D, _P, _P, _P),
+    "ld_measure": (_P, _L, _I, _I, _D, _P, _P, _P, _P, _P),
     "pop_counts": (_P, _I, _I, _P, _I, _P, _P, _P),
     "ibd_em": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _I, _D, _P, _I,
                _I, _I, _P, _P, _P, _P, _P),
     "ibd_simplex": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _D, _P,
                     _I, _I, _I, _P, _P, _P, _P, _P, _P),
-    "ibd_loglik": (_P, _P, _I, _P, _P, _I, _P, _P, _P),
+    "ibd_loglik": (_P, _I, _I, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P,
+                   _P),
     "perm_cross": (_P, _P, _I, _I, _I, _P, _P, _P),
 }
 
@@ -1612,6 +1616,8 @@ def ld_plan(si: int, sj: int, B: int) -> LdPlan:
 # The LD measures of ld_measure, in the kernel's numbering.
 LD_METHODS = ("composite", "corr", "cov", "r", "dprime")
 DBL_EPSILON = float(np.finfo(np.float64).eps)
+LD_EM_FIRST = 8  # updates every EM pair runs in K10's first pass (EM_FIRST)
+LD_EM_KEEP = 8  # past them, a warp goes on while as many lanes run (EM_KEEP)
 
 
 def _em_haplo_t(nA_A, nA_B, nB_A, nB_B, nDH2):
@@ -1619,8 +1625,8 @@ def _em_haplo_t(nA_A, nA_B, nB_A, nB_B, nDH2):
     included: every EM pair starts active and freezes once it converges,
     at most 1,000 iterations. The loop runs over the EM pairs alone (the
     others keep the direct solution, as in JAX). Returns the four
-    haplotype proportions and the pair-iterations run (the sum over
-    iterations of active pairs)."""
+    haplotype proportions and each pair's iterations (int64, 0 for a pair
+    without EM)."""
     eps = DBL_EPSILON
     n_total = nA_A + nA_B + nB_A + nB_B + nDH2
     direct = [nA_A / n_total, nA_B / n_total, nB_A / n_total,
@@ -1649,12 +1655,11 @@ def _em_haplo_t(nA_A, nA_B, nB_A, nB_B, nDH2):
     contol = torch.maximum(torch.abs(math.sqrt(eps) * old),
                            torch.full_like(old, eps))
     active = torch.ones_like(old, dtype=torch.bool)
-    iters = 0
+    iters = torch.zeros_like(old, dtype=torch.int64)
     for _ in range(1000):
-        live = int(active.sum())
-        if not live:
+        if not bool(active.any()):
             break
-        iters += live
+        iters += active
         p_ad = a * d
         p_bc = b * c
         ndh_ad = torch.where(p_ad + p_bc > 0, p_ad / (p_ad + p_bc) * nDH, 0.0)
@@ -1669,18 +1674,22 @@ def _em_haplo_t(nA_A, nA_B, nB_A, nB_B, nDH2):
         active = active & ~conv
     for p, v in zip(direct, (a, b, c, d)):
         p[sel] = v
-    return tuple(direct), iters
+    per_pair = torch.zeros(em.shape, dtype=torch.int64, device=em.device)
+    per_pair[sel] = iters
+    return tuple(direct), per_pair
 
 
 def ld_measure_em(J: torch.Tensor, method: str):
-    """(values float64, EM pair-iterations, haplotype proportions) of the
-    joint tables J (3, 3, ...): the JAX package's _ld_from_joint_jnp in
-    torch float64, in its expression order, over any trailing shape. The
-    iteration count is 0 and the proportions (pA_A, pA_B, pB_A, pB_B) are
-    None for the methods without EM."""
+    """(values float64, EM iterations of each pair, haplotype proportions)
+    of the joint tables J (3, 3, ...): the JAX package's _ld_from_joint_jnp
+    in torch float64, in its expression order, over any trailing shape.
+    The iterations (int64, J's trailing shape) are 0 for a pair without
+    EM, and for every pair of the methods without EM, whose proportions
+    (pA_A, pA_B, pB_A, pB_B) are None."""
     J = [[J[a, b].double() for b in range(3)] for a in range(3)]
     n = sum(J[a][b] for a in range(3) for b in range(3))
     nan = float("nan")
+    none = torch.zeros(n.shape, dtype=torch.int64, device=n.device)
     if method == "composite":
         naa = J[0][0] + J[0][1] + J[0][2]
         naA = J[1][0] + J[1][1] + J[1][2]
@@ -1701,14 +1710,14 @@ def ld_measure_em(J: torch.Tensor, method: str):
         t = (pA * pa + DA) * (pB * pb + DB)
         return torch.where((n > 0) & (t > 0),
                            delta / torch.sqrt(torch.where(t > 0, t, 1.0)),
-                           nan), 0, None
+                           nan), none, None
     if method in ("corr", "cov"):
         X = sum(a * J[a][b] for a in range(3) for b in range(3))
         Y = sum(b * J[a][b] for a in range(3) for b in range(3))
         XY = sum(a * b * J[a][b] for a in range(3) for b in range(3))
         if method == "cov":
             return torch.where(n > 1, (XY - X * Y / n)
-                               / torch.clamp(n - 1, min=1), nan), 0, None
+                               / torch.clamp(n - 1, min=1), nan), none, None
         XX = sum(a * a * J[a][b] for a in range(3) for b in range(3))
         YY = sum(b * b * J[a][b] for a in range(3) for b in range(3))
         c1 = XX - X * X / n
@@ -1717,7 +1726,7 @@ def ld_measure_em(J: torch.Tensor, method: str):
         return torch.where((n > 0) & (val > 0),
                            (XY - X * Y / n)
                            / torch.sqrt(torch.where(val > 0, val, 1.0)),
-                           nan), 0, None
+                           nan), none, None
     if method in ("r", "dprime"):
         nA_A = 2 * J[2][2] + J[2][1] + J[1][2]
         nA_B = 2 * J[2][0] + J[2][1] + J[1][0]
@@ -1751,7 +1760,10 @@ def ld_measure(J: torch.Tensor, method: str,
     (:func:`ld_joint`), one of ``LD_METHODS``, in float64: the values
     (Si, Sj) float64, or with ``threshold`` the band |LD| > threshold as
     (Si, Sj) bool (a NaN compares false). NaN and inf come out where the
-    JAX package's x64 code gives them."""
+    JAX package's x64 code gives them. On the card r and dprime run in
+    two launches on the stream: the pairs without EM are written by the
+    first, the EM pairs by a persistent pass whose lanes refill from a
+    worklist; the values are those of the plain version, bit for bit."""
     if method not in LD_METHODS:
         raise ValueError(f"unknown LD method {method!r}; one of "
                          f"{LD_METHODS}")
@@ -1760,14 +1772,31 @@ def ld_measure(J: torch.Tensor, method: str,
     _check(J, "J", torch.int32, J.shape, J.device)
     if not J.is_cuda:
         return ld_measure_plain(J, method, threshold)
+    return _ld_measure_card(J, method, threshold)
+
+
+def _ld_measure_card(J: torch.Tensor, method: str,
+                     threshold: float | None = None, stats=None):
+    """K10 on the card. r and dprime take their worklist (56 bytes a pair)
+    from torch's caching allocator; ``stats`` (None, or 5 int64 on the
+    card) gets the first pass's warp EM steps and busy lane-steps, then the
+    EM pass's, and the pairs the first pass left to the EM pass, added."""
     si, sj = J.shape[2:]
     band = threshold is not None
     out = torch.empty((si, sj), dtype=torch.bool if band else torch.float64,
                       device=J.device)
+    em = method in ("r", "dprime")
+    if em and si * sj >= 1 << 31:
+        raise ValueError("ld_measure r / dprime: fewer than 2^31 pairs a "
+                         "call")
+    work = torch.empty(1 + 7 * si * sj, dtype=torch.int64,
+                       device=J.device) if em else None
     _launch("ld_measure", J.device, J.data_ptr(), si * sj,
             LD_METHODS.index(method), int(band),
             float(threshold) if band else 0.0,
-            None if band else out.data_ptr(), out.data_ptr() if band else None)
+            None if band else out.data_ptr(), out.data_ptr() if band else None,
+            None if work is None else work.data_ptr(),
+            None if stats is None else stats.data_ptr())
     ld_measure.launches += 1
     return out
 
@@ -1839,22 +1868,17 @@ def _check_ibd(table: torch.Tensor, gT: torch.Tensor, i: torch.Tensor,
     B = i.shape[0]
     _check(i, "i", torch.int64, (B,), dev)
     _check(j, "j", torch.int64, (B,), dev)
-    if B and (min(int(i.min()), int(j.min())) < 0
-              or max(int(i.max()), int(j.max())) >= gT.shape[0]):
+    # the largest code and the indices' range in one transfer
+    z = torch.zeros((), dtype=torch.int64, device=dev)
+    top, lo_i, hi_i, lo_j, hi_j = torch.stack([
+        gT.max().long() if gT.numel() else z,
+        *(torch.aminmax(i) if B else (z, z)),
+        *(torch.aminmax(j) if B else (z, z))]).tolist()
+    if B and (min(lo_i, lo_j) < 0 or max(hi_i, hi_j) >= gT.shape[0]):
         raise ValueError(f"pair indices outside the {gT.shape[0]} samples")
-    if gT.numel() and int(gT.max()) > 3:
+    if top > 3:
         raise ValueError("gT: genotype codes must be 0, 1, 2 or 3")
     return S, K, B
-
-
-def _padded(table: torch.Tensor) -> torch.Tensor:
-    """K14's table layout (S, 16, 4) of a 3-state table: each (SNP, code)
-    row padded with a zero to a whole 32-byte sector, so a thread's row
-    costs the L2 no more sectors than it holds."""
-    S = table.shape[0]
-    out = torch.zeros((S, 16, 4), dtype=torch.float64, device=table.device)
-    out[:, :, :3] = table.reshape(S, 16, 3)
-    return out
 
 
 IBD_WARPS = 16    # K12 / K13: pairs a block, one a warp (csrc IW)
@@ -1865,6 +1889,7 @@ IBD_STAGES = 8    # ring stages at most (MAX_STAGES)
 # 1,264 bytes
 IBD_STATIC = 2048
 IBD_PER_SM = 1    # resident blocks an SM (512 threads, 128 registers)
+LAYOUT_BOOLS = 1 << 26  # ibd_layout's column comparisons at a time
 SMEM_MAX = 232_448  # dynamic shared memory a block can have on Hopper
 
 
@@ -1908,22 +1933,33 @@ def ibd_layout(table: torch.Tensor):
     rows must be zero (the kernels read no entry for them), and every
     entry finite (the columns are compared exactly): raises otherwise."""
     S, K = table.shape[0], table.shape[-1]
+    n = 9 * K
     t = table.reshape(S, 4, 4, K)
-    if bool((t[:, 3] != 0).any()) or bool((t[:, :, 3] != 0).any()):
+    cols = t[:, :3, :3, :].reshape(S, n).T.contiguous()
+    # each column against every other, exactly, LAYOUT_BOOLS at a time;
+    # then the checks, the non-zero columns and the comparisons in one
+    # transfer
+    same = torch.ones((n, n), dtype=torch.bool, device=table.device)
+    step = max(1, LAYOUT_BOOLS // (n * n))
+    for s0 in range(0, S, step):
+        c = cols[:, s0:s0 + step]
+        same &= (c[:, None, :] == c[None, :, :]).all(2)
+    host = torch.cat([
+        ((t[:, 3] != 0).any() | (t[:, :, 3] != 0).any()).reshape(1),
+        (~torch.isfinite(t).all()).reshape(1), (cols != 0).any(1),
+        same.reshape(-1)]).cpu().numpy()
+    if host[0]:
         raise ValueError("table: the rows of a code with a missing genotype "
                          "must be zero (the kernels skip such SNPs)")
-    if not bool(torch.isfinite(t).all()):
+    if host[1]:
         raise ValueError("table: every entry must be finite")
-    cols = t[:, :3, :3, :].reshape(S, 9 * K).T.contiguous()
-    # each column against every other, exactly, in one transfer
-    same = torch.stack([(cols == c).all(1) for c in cols]).cpu()
-    nonzero = (cols != 0).any(1).cpu()
+    nonzero, same = host[2:2 + n], host[2 + n:].reshape(n, n)
     plane, first = [], []
-    for c in range(9 * K):
-        if not bool(nonzero[c]):
+    for c in range(n):
+        if not nonzero[c]:
             plane.append(-1)
             continue
-        j = int(torch.nonzero(same[c, :c + 1])[0])
+        j = int(np.argmax(same[c, :c + 1]))
         if j == c:
             first.append(c)
         plane.append(plane[j] if j < c else len(first) - 1)
@@ -1965,16 +2001,61 @@ def ibd_codes(gT: torch.Tensor) -> torch.Tensor:
     return b.transpose(2, 3).contiguous()
 
 
+def _ibd_inputs(table: torch.Tensor, gT: torch.Tensor, nm: bool = False):
+    """(planes, cmap, codes) of a K12-K14 launch: :func:`ibd_layout` of the
+    table (K13's staged as it reads it: its missing-code rows are zero
+    exactly where the table's are) and :func:`ibd_codes` of gT, whose codes
+    :func:`_check_ibd` has checked."""
+    return (*ibd_layout(nm_table(table) if nm else table), ibd_codes(gT))
+
+
 def _ibd_staged(table: torch.Tensor, gT: torch.Tensor, B: int,
                 nm: bool = False):
-    """(planes, cmap, codes, plan, queue) of a K12 / K13 launch (K13's
-    table staged as it reads it: its missing-code rows are zero exactly
-    where the table's are)."""
-    planes, cmap = ibd_layout(nm_table(table) if nm else table)
-    codes = ibd_codes(gT)
+    """(planes, cmap, codes, plan, queue) of a K12 / K13 launch."""
+    planes, cmap, codes = _ibd_inputs(table, gT, nm)
     plan = ibd_plan(B, table.shape[0], planes.shape[1], _sms(table.device))
     queue = torch.zeros(1, dtype=torch.int32, device=table.device)
     return planes, cmap, codes, plan, queue
+
+
+LOGLIK_PAIRS = (4, 2, 1)  # K14: pairs a warp that csrc/ibd_mle.cu builds
+LOGLIK_SLACK = 1.05  # the most a larger P may cost over the least
+
+
+class LoglikPlan(NamedTuple):
+    """The launch of K14 ibd_loglik (see :func:`loglik_plan`)."""
+    grid: int     # blocks
+    pairs: int    # P: pairs a warp, swept together
+    rounds: int   # sweeps a block makes at most
+    tiles: int    # tiles of IBD_TILE SNPs a sweep
+    planes: int   # planes of the staged table
+    stages: int   # ring stages
+    smem: int     # dynamic shared memory a block (the ring), bytes
+
+
+@functools.lru_cache(maxsize=1024)
+def loglik_plan(B: int, S: int, sms: int, planes: int = 14) -> LoglikPlan:
+    """The grid of one K14 launch over B pairs and S SNPs on a card of
+    ``sms`` SMs, as ``csrc/ibd_mle.cu`` runs it: IBD_PER_SM blocks of
+    IBD_WARPS warps an SM, each warp sweeping P consecutive pairs at once
+    (a group), block b taking the groups of rounds b, b + grid, ...; the
+    ring as :func:`ibd_plan` sizes it. Every group costs one sweep, whose
+    time grows with P (its shared-memory reads do), so a launch costs
+    about rounds x P; P is the largest of LOGLIK_PAIRS whose cost is within
+    LOGLIK_SLACK of the least, since a larger P moves fewer table tiles
+    through L2 (each serves 16 P pairs)."""
+    base = ibd_plan(B, S, planes, sms)
+    costs = {}
+    for P in LOGLIK_PAIRS:
+        blocks = max(1, -(-B // (P * IBD_WARPS)))
+        grid = min(sms * IBD_PER_SM, blocks)
+        costs[P] = (-(-blocks // grid) * P, grid, -(-blocks // grid))
+    least = min(c[0] for c in costs.values())
+    P = next(P for P in LOGLIK_PAIRS
+             if costs[P][0] <= LOGLIK_SLACK * least)
+    _, grid, rounds = costs[P]
+    return LoglikPlan(grid, P, rounds, base.tiles, planes, base.stages,
+                      base.smem)
 
 
 def ibd_em(table: torch.Tensor, gT: torch.Tensor, i: torch.Tensor,
@@ -2058,19 +2139,32 @@ def ibd_loglik(table: torch.Tensor, gT: torch.Tensor, i: torch.Tensor,
     """(B,) float64 log-likelihood of each pair (i[b], j[b]) under the
     IBD coefficients k[b] = (k0, k1, k2) (B, 3) float64 over the 3-state
     table: the JAX package's ll_tile, -inf where an observed state has
-    probability 0. One warp a pair on the card."""
+    probability 0. On the card K12's ring over the staged table
+    (:func:`ibd_layout`, :func:`ibd_codes`), P pairs a warp as
+    :func:`loglik_plan` picks; a table with a non-finite entry or a
+    non-zero missing-code row is refused there (``pr_ibd_table`` makes
+    neither). A pair's result does not depend on the batch or on P."""
     S, _, B = _check_ibd(table, gT, i, j, states=(3,))
     _check(k, "k", torch.float64, (B, 3), table.device)
     if not table.is_cuda:
         return ibd_loglik_plain(table, gT, i, j, k)
     out = torch.empty(B, dtype=torch.float64, device=table.device)
-    tab = _padded(table)
     if B:
-        _launch("ibd_loglik", table.device, tab.data_ptr(), gT.data_ptr(),
-                S, i.data_ptr(), j.data_ptr(), B, k.data_ptr(),
-                out.data_ptr())
-        ibd_loglik.launches += 1
+        planes, cmap, codes = _ibd_inputs(table, gT)
+        plan = loglik_plan(B, S, _sms(table.device), planes.shape[1])
+        _loglik_launch(planes, cmap, codes, i, j, k, plan, out)
     return out
+
+
+def _loglik_launch(planes, cmap, codes, i, j, k, plan: LoglikPlan,
+                   out) -> None:
+    """One K14 launch over the staged table and codes with ``plan``'s P
+    and grid (a check may give another P: a pair's bits do not change)."""
+    _launch("ibd_loglik", out.device, planes.data_ptr(), plan.tiles,
+            plan.planes, plan.stages, codes.data_ptr(), cmap.data_ptr(),
+            i.data_ptr(), j.data_ptr(), len(out), k.data_ptr(), plan.pairs,
+            plan.grid, plan.smem, out.data_ptr())
+    ibd_loglik.launches += 1
 
 
 ibd_loglik.launches = 0
